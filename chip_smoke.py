@@ -1,17 +1,27 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``ocean_perception_tpu_torch.models.perception.perception_step`` at
-the bench's full width (1280x720 RGB, max_disp=128, internal_scale=2,
-enhancement on) on a synthetic stereo scene of known disparity, in phases:
+Drives the port's two entry points at the bench's full width (1280x720 RGB,
+max_disp=128, internal_scale=2, enhancement on) on synthetic scenes of known
+disparity and motion, in phases:
 
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the hand-written kernels from ``csrc/``;
-3. each kernel against its plain PyTorch twin on the card, at the shapes the
-   720p path gives it (bit-identical), with both times;
-4. end to end: 8 frames, checking the kernels' launch counts, finite outputs
-   and the disparity against the scene's truth;
-5. the same frame through the port on the CPU (plain twins), against the card.
+3. each PatchMatch kernel against its plain PyTorch twin on the card, at the
+   shapes the 720p path gives it (bit-identical), with both times;
+4. ``perception_step`` end to end: 8 frames, checking the kernels' launch
+   counts, finite outputs and the disparity against the scene's truth;
+   then the device time of each stage;
+5. the same perception frame through the port on the CPU, against the card;
+6. the two LK kernels against their twins at the 720p shapes of
+   ``full_frontend_step`` (K=200 slots, a 4-frame ring, 4 levels, forward
+   and backward; bit-identical), with both times;
+7. ``full_frontend_step`` end to end (tracker with the pyramid ring, stripe
+   matcher, landmark graph) over 8 frames of a sequence that moves -2 px a
+   frame with an 8 px stereo disparity: launch counts, finite outputs, the
+   track error against the known motion, the stripe disparities, ms/frame,
+   the tracker's share, host syncs per frame and the stage times;
+8. the same frontend frame through the port on the CPU, against the card.
 
 Any failure raises and exits nonzero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
@@ -28,24 +38,33 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
-from ocean_perception_tpu_torch.models.perception import PerceptionConfig, perception_step
+from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
+from ocean_perception_tpu_torch.mesher.object_mesher import ObjectMesherDeviceParams
+from ocean_perception_tpu_torch.models.perception import (PerceptionConfig, full_frontend_step,
+                                                          perception_step)
 from ocean_perception_tpu_torch.ops import cuda
-from ocean_perception_tpu_torch.ops.image import gradient_magnitude, pyr_down, to_grayscale
+from ocean_perception_tpu_torch.ops.image import (gradient_magnitude, image_pyramid, pyr_down,
+                                                  to_grayscale)
 from ocean_perception_tpu_torch.stereo import patchmatch as pm
 from ocean_perception_tpu_torch.stereo.cost import cost_volume_plain
+from ocean_perception_tpu_torch.tracking import lk
+from ocean_perception_tpu_torch.tracking.stereo_tracker import StereoTrackerState
 
 H, W = 720, 1280
 MAX_DISP, SCALE = 128, 2
 TRUE_DISP = 8
 N_FRAMES = 8
 N_TIMED = 20
-# Launches of each kernel per frame of the main path.
+# Launches of each kernel per frame of each path.
 PER_FRAME = {"cost_volume": 1, "pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}
+PER_FRONTEND_FRAME = dict(PER_FRAME, lk_prep=8, lk_walk=8)  # 4 levels x forward/backward
+SHIFT = 2  # frontend sequence: features move -SHIFT px a frame
 SOURCES = {
     "cost_volume": ("ocean_perception_tpu_torch/csrc/cost_volume.cu",
                     "ocean_perception_tpu/ops/pallas/cost_volume.py:97"),
@@ -55,19 +74,29 @@ SOURCES = {
                      "ocean_perception_tpu/ops/pallas/propagate.py:115"),
     "pm_mask_background": ("ocean_perception_tpu_torch/csrc/patchmatch.cu",
                            "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
+    "lk_prep": ("ocean_perception_tpu_torch/csrc/lk.cu",
+                "ocean_perception_tpu/ops/pallas/lk_prep.py:291"),
+    "lk_walk": ("ocean_perception_tpu_torch/csrc/lk.cu",
+                "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
 }
 PASSES = ((+1, 1), (+1, 0), (-1, 1), (-1, 0))  # R+ C+ R- C-
 
 
-def make_inputs() -> tuple[np.ndarray, np.ndarray]:
-    """Synthetic 720p stereo scene (bench.py's recipe): right(y, x - 8) == left(y, x)."""
+def make_canvas() -> np.ndarray:
+    """Box-smoothed random canvas, 200 px wider than a frame (bench.py's recipe)."""
     rng = np.random.default_rng(0)
     canvas = rng.random((H, W + 200)).astype(np.float32)
     k = np.ones(5, np.float32) / 5
     canvas = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, canvas)
-    canvas = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, canvas)
-    left = canvas[:, 100 : 100 + W]
-    right = canvas[:, 100 + TRUE_DISP : 100 + TRUE_DISP + W]
+    return np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, canvas)
+
+
+def make_inputs(canvas: np.ndarray, i: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Frame i of the synthetic 720p stereo sequence:
+    left_i(y, x) = canvas(y, x + 100 + SHIFT*i), right_i(y, x - 8) == left_i(y, x)."""
+    x0 = 100 + SHIFT * i
+    left = canvas[:, x0 : x0 + W]
+    right = canvas[:, x0 + TRUE_DISP : x0 + TRUE_DISP + W]
     tint = np.array([0.35, 0.75, 0.9], np.float32)
     left_rgb = np.clip(left[..., None] * tint + 0.05, 0, 1).astype(np.float32)
     right_rgb = np.clip(right[..., None] * tint + 0.05, 0, 1).astype(np.float32)
@@ -306,11 +335,233 @@ def phase_cpu_parity(left_rgb, right_rgb, rig, config, disp_gpu: torch.Tensor) -
         raise AssertionError("card and CPU disparities disagree")
 
 
+def record_lk_calls(fn) -> list:
+    """Run fn() and return the (name, args, kwargs) of every lk_prep and
+    lk_walk call it made, in order: the exact inputs the main path gives the
+    two kernels."""
+    calls = []
+    orig = {name: getattr(lk, name) for name in ("lk_prep", "lk_walk")}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return orig[name](*args, **kwargs)
+        return call
+
+    try:
+        for name in orig:
+            setattr(lk, name, spy(name))
+        fn()
+    finally:
+        for name, f in orig.items():
+            setattr(lk, name, f)
+    return calls
+
+
+def phase_lk_kernels(calls: list) -> dict:
+    """lk_prep and lk_walk against their twins on one frontend frame's
+    recorded inputs (4 levels, forward then backward): bit-identical."""
+    plain = {"lk_prep": lk.lk_prep_plain, "lk_walk": lk.lk_walk_plain}
+    kernel = {"lk_prep": lk.lk_prep, "lk_walk": lk.lk_walk}
+    rows = {name: dict(max_abs_err=0.0, ms=[], plain_ms=[]) for name in plain}
+    if [c[0] for c in calls] != ["lk_prep", "lk_walk"] * 8:
+        raise AssertionError(f"expected 8 prep/walk pairs, got {[c[0] for c in calls]}")
+    for i, (name, args, kwargs) in enumerate(calls):
+        got = kernel[name](*args, **kwargs)
+        want = plain[name](*args, **kwargs)
+        for a, b in zip(got, want):
+            fa, fb = a.float().nan_to_num(-1e30), b.float().nan_to_num(-1e30)
+            require_equal(f"{name} call {i}", fa, fb)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs(fa, fb))
+        ms = gpu_ms(lambda: kernel[name](*args, **kwargs))
+        plain_ms = gpu_ms(lambda: plain[name](*args, **kwargs), 5)
+        rows[name]["ms"].append(ms)
+        rows[name]["plain_ms"].append(plain_ms)
+        shape = "x".join(str(d) for d in args[0].shape)
+        print(f"[lk] {name} call {i} ({shape}): {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    for name, row in rows.items():
+        total, total_plain = sum(row["ms"]), sum(row["plain_ms"])
+        row["ms"], row["plain_ms"] = total / 8, total_plain / 8
+        print(f"[lk] {name}: {total:.4f} ms per frame (8 launches) vs plain {total_plain:.4f} ms, "
+              f"max |diff| {row['max_abs_err']}")
+    return rows
+
+
+def count_syncs(fn) -> int:
+    """Host syncs made by fn(), as torch.cuda.set_sync_debug_mode reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_frontend(canvas, rig, config) -> dict:
+    """full_frontend_step over the moving sequence: 4 warm-up frames fill the
+    ring (frame 0 is the first keyframe), frame 4 is recorded for the LK
+    kernel check, frames 5..12 are timed and checked."""
+    dev = torch.device("cuda", 0)
+    params = ObjectMesherDeviceParams()
+    frames = [tuple(torch.as_tensor(a, device=dev) for a in make_inputs(canvas, i))
+              for i in range(5 + N_FRAMES + 1)]
+    state = StereoTrackerState.create(params.tracker, image_shape=(H, W), device=dev)
+    graph = LandmarkGraph.create(params.tracker.capacity, device=dev)
+    prev = to_grayscale(frames[0][0])
+
+    def step(i):
+        nonlocal state, graph, prev
+        out, prev = full_frontend_step(state, graph, prev, *frames[i], rig, config, params)
+        state, graph = out.tracker_state, out.graph
+        return out
+
+    for i in range(4):
+        out = step(i)
+        if i == 0:
+            alive = int(out.tracker_state.table.alive.sum())
+            if not (bool(out.mesher.is_keyframe) and alive >= 50):
+                raise AssertionError(f"first keyframe: {alive} landmarks alive")
+    calls = record_lk_calls(lambda: step(4))
+    torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    before, outs = [state], []
+    digest = torch.zeros((), device=dev, dtype=torch.float64)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(5, 5 + N_FRAMES):
+        out = step(i)
+        # Consume every stage's output, labels and sizes included, so that no
+        # stage's work can be skipped.
+        m = out.mesher
+        digest += (out.perception.disparity.sum() + out.perception.enhanced_left.sum()
+                   + m.disparities.sum() + m.labels.sum() + m.sizes.sum())
+        outs.append(out)
+        before.append(state)
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / N_FRAMES
+    launches = dict(cuda.LAUNCHES)
+    ms_frame = start.elapsed_time(end) / N_FRAMES
+
+    for name, per in PER_FRONTEND_FRAME.items():
+        if launches[name] != per * N_FRAMES:
+            raise AssertionError(f"frontend {name}: {launches[name]} launches over {N_FRAMES} "
+                                 f"frames, expected {per * N_FRAMES}")
+    errs, disps = [], []
+    for k, out in enumerate(outs):
+        for field, t in (*out.perception._asdict().items(),
+                         *((f, v) for f, v in out.mesher._asdict().items() if v.is_floating_point())):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"frontend frame {k}: non-finite {field}")
+        a, b = before[k].table, before[k + 1].table
+        same = (a.ids >= 0) & (a.ids == b.ids) & (b.missed == 0)
+        moved = b.pixels[same] - a.pixels[same]
+        moved[:, 0] += SHIFT * (a.missed[same].float() + 1)
+        errs.append(moved.abs().flatten())
+        d = out.mesher.disparities[out.tracker_state.table.alive]
+        disps.append(d[d > 0] - TRUE_DISP)
+    errs, disps = torch.cat(errs), torch.cat(disps)
+    med_err, med_disp = float(errs.median()), float(disps.abs().median())
+    alive = int(outs[-1].tracker_state.table.alive.sum())
+    clusters = int((outs[-1].mesher.sizes >= 3).sum())
+    print(f"[frontend] {N_FRAMES} frames: {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps), "
+          f"host {1000.0 * wall:.3f} ms/frame, median |track error| {med_err:.5f} px over "
+          f"{errs.numel() // 2} tracks, median |stripe disp - {TRUE_DISP}| {med_disp:.4f} px over "
+          f"{disps.numel()} matches, {alive} alive, {clusters} clusters of >= 3, "
+          f"digest {float(digest):.6e}, launches {launches}")
+    if not med_err < 0.1:
+        raise AssertionError(f"median |track error| {med_err} px")
+    if not med_disp < 0.5:
+        raise AssertionError(f"median |stripe disparity - {TRUE_DISP}| {med_disp} px")
+    if alive < 50:
+        raise AssertionError(f"{alive} landmarks alive")
+
+    syncs = count_syncs(lambda: step(5 + N_FRAMES))
+    torch.cuda.synchronize()
+    print(f"[frontend] host syncs per frame: {syncs}")
+    return dict(launches=launches, calls=calls, ms_frame=ms_frame, frames=frames, params=params,
+                state=before[-2], graph=outs[-2].graph, prev=to_grayscale(frames[4 + N_FRAMES - 1][0]),
+                out=outs[-1])
+
+
+def phase_frontend_stage_times(fe, rig, config) -> None:
+    """Device time of each stage of one frontend frame (the last timed one)."""
+    from ocean_perception_tpu_torch.mesher.foreground import estimate_foreground_mask
+    from ocean_perception_tpu_torch.mesher.object_mesher import mesher_device_step
+    from ocean_perception_tpu_torch.tracking.detector import detect_features
+    from ocean_perception_tpu_torch.tracking.stereo_tracker import track_and_triangulate
+    from ocean_perception_tpu_torch.tracking.stripe_match import match_rectified
+
+    p, state, graph, prev = fe["params"], fe["state"], fe["graph"], fe["prev"]
+    left, right = fe["frames"][4 + N_FRAMES]
+    gl, gr = to_grayscale(left), to_grayscale(right)
+    fxb = torch.full((), 700.0 * 0.12, device=left.device)
+    table = state.table
+    pyr = tuple(image_pyramid(gl, p.tracker.lk.max_level + 1))
+    st = {}
+    st["frame (full_frontend_step)"] = gpu_ms(
+        lambda: full_frontend_step(state, graph, prev, left, right, rig, config, p), 5)
+    st["perception_step"] = gpu_ms(lambda: perception_step(left, right, rig, config), 5)
+    st["mesher half (mesher_device_step)"] = gpu_ms(
+        lambda: mesher_device_step(state, graph, prev, gl, gr, fxb, p), 5)
+    st["  tracker (track_and_triangulate)"] = gpu_ms(
+        lambda: track_and_triangulate(state, prev, gl, gr, fxb, p.tracker), 5)
+    st["    image pyramid"] = gpu_ms(lambda: image_pyramid(gl, p.tracker.lk.max_level + 1))
+    st["    LK, forward + backward (track_points_ring)"] = gpu_ms(
+        lambda: lk.track_points_ring(state.ring, pyr, table.pixels, table.alive, table.missed,
+                                     p.tracker.lk), 10)
+    st["    detector"] = gpu_ms(lambda: detect_features(gl, p.tracker.detector, table.pixels,
+                                                        table.alive), 10)
+    st["    stripe matcher"] = gpu_ms(lambda: match_rectified(gl, gr, table.pixels, table.alive,
+                                                              p.tracker.matcher), 10)
+    st["  foreground mask"] = gpu_ms(lambda: estimate_foreground_mask(
+        gl, p.foreground_ksize, p.foreground_min_gradient))
+    frame = st["frame (full_frontend_step)"]
+    for k, v in st.items():
+        print(f"[frontend stages] {k}: {v:.4f} ms ({100.0 * v / frame:.1f}% of the frame)")
+    syncs = {
+        "perception_step": count_syncs(lambda: perception_step(left, right, rig, config)),
+        "tracker": count_syncs(lambda: track_and_triangulate(state, prev, gl, gr, fxb, p.tracker)),
+        "mesher half": count_syncs(lambda: mesher_device_step(state, graph, prev, gl, gr, fxb, p)),
+    }
+    torch.cuda.synchronize()
+    print(f"[frontend stages] host syncs: {syncs}")
+    print(f"[frontend] tracker share of the frame: "
+          f"{100.0 * st['  tracker (track_and_triangulate)'] / frame:.1f}%")
+
+
+def phase_frontend_cpu_parity(fe, rig, config) -> None:
+    """The last timed frontend frame again on the CPU, from the same state."""
+    cpu = torch.device("cpu")
+    state, graph, prev = fe["state"].to(cpu), fe["graph"].to(cpu), fe["prev"].cpu()
+    left, right = (t.cpu() for t in fe["frames"][4 + N_FRAMES])
+    t0 = time.perf_counter()
+    out, _ = full_frontend_step(state, graph, prev, left, right, rig, config, fe["params"])
+    took = time.perf_counter() - t0
+    g, c = fe["out"], out
+    gt, ct = g.tracker_state.table, c.tracker_state.table
+    alive_agree = float((g.mesher.alive.cpu() == c.mesher.alive).float().mean())
+    both = ((gt.ids.cpu() == ct.ids) & (gt.ids.cpu() >= 0) & (gt.missed.cpu() == 0)
+            & (ct.missed == 0))
+    px = float((gt.pixels.cpu() - ct.pixels)[both].abs().max()) if both.any() else 0.0
+    labels_equal = torch.equal(g.mesher.labels.cpu(), c.mesher.labels)
+    print(f"[frontend cpu] one frame on the CPU in {took:.1f} s: alive slots agree on "
+          f"{100 * alive_agree:.2f}%, max |pixel diff| {px} over {int(both.sum())} tracks, "
+          f"labels equal {labels_equal}")
+    if alive_agree < 0.99 or not px <= 1e-3 or not labels_equal:
+        raise AssertionError("card and CPU frontends disagree")
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
     dev = torch.device("cuda", 0)
-    left_np, right_np = make_inputs()
+    canvas = make_canvas()
+    left_np, right_np = make_inputs(canvas)
     left_rgb = torch.as_tensor(left_np, device=dev)
     right_rgb = torch.as_tensor(right_np, device=dev)
     cam = PinholeCamera.create(700.0, 700.0, W / 2, H / 2, H, W)
@@ -322,10 +573,18 @@ def main() -> int:
     phase_stage_times(left_rgb, right_rgb, rig, config)
     phase_cpu_parity(left_rgb, right_rgb, rig, config, disp)
 
+    fe = phase_frontend(canvas, rig, config)
+    rows.update(phase_lk_kernels(fe["calls"]))
+    phase_frontend_stage_times(fe, rig, config)
+    phase_frontend_cpu_parity(fe, rig, config)
+
+    # Launches on each kernel's own path: PatchMatch's from perception_step,
+    # LK's from full_frontend_step.
+    launches.update({k: fe["launches"][k] for k in ("lk_prep", "lk_walk")})
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=launches[k], **rows[k])
-        for k in PER_FRAME
+        for k in PER_FRONTEND_FRAME
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

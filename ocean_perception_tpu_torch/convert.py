@@ -1,10 +1,13 @@
 """Bridge from the JAX package's parameter objects to the port's.
 
 This system has no learned weights: its "weights" are the configuration
-dataclasses and the stereo rig, and its only carried state is the 12-vector
-attenuation guess. The functions here read the JAX objects' fields by
-attribute and ``np.asarray`` (duck-typed, so this module imports no JAX)
-and return the port's frozen dataclasses and tensors.
+dataclasses and the stereo rig. Its carried state is the 12-vector
+attenuation guess and, for the front end, the tracker state (track table,
+frame counters, pyramid ring) and the landmark graph. The functions here
+read the JAX objects' fields by attribute and ``np.asarray`` (duck-typed, so
+this module imports no JAX) and return the port's frozen dataclasses and
+tensors. Fields that only steer TPU code paths have no counterpart: the
+port has one path.
 """
 
 from __future__ import annotations
@@ -14,7 +17,14 @@ import torch
 
 from .core.cameras import PinholeCamera, StereoCamera
 from .imaging.enhance import EnhanceParams
+from .mesher.landmark_graph import LandmarkGraph
+from .mesher.object_mesher import ObjectMesherDeviceParams
 from .models.perception import PerceptionConfig
+from .tracking.detector import DetectorParams
+from .tracking.lk import LKParams
+from .tracking.stereo_tracker import StereoTrackerParams, StereoTrackerState
+from .tracking.stripe_match import StripeMatcherParams
+from .tracking.tracks import TrackTable
 
 
 def _scalar(v) -> float:
@@ -60,3 +70,72 @@ def beta_guess_from_numpy(beta, device=None) -> torch.Tensor:
     if arr.shape != (12,):
         raise ValueError(f"beta_D guess must have shape (12,), got {arr.shape}")
     return torch.as_tensor(arr, device=device)
+
+
+def _fields(cls, obj, **nested):
+    """The port's dataclass ``cls`` from the same-named fields of ``obj``."""
+    import dataclasses
+
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        kw[f.name] = nested[f.name](v) if f.name in nested else type(f.default)(v)
+    return cls(**kw)
+
+
+def detector_params_from_jax(params) -> DetectorParams:
+    return _fields(DetectorParams, params)
+
+
+def lk_params_from_jax(params) -> LKParams:
+    """The TPU scheduling knobs (fused_lk, pallas_iters, corr_iters,
+    corr_impl, batched_windows, early_exit, exit_unroll, iter_unroll) are
+    dropped: they choose between paths that compute the same walk."""
+    return _fields(LKParams, params)
+
+
+def stripe_matcher_params_from_jax(params) -> StripeMatcherParams:
+    """``impl`` (sliced or batched) is dropped: the two agree."""
+    return _fields(StripeMatcherParams, params)
+
+
+def stereo_tracker_params_from_jax(params) -> StereoTrackerParams:
+    return _fields(StereoTrackerParams, params, detector=detector_params_from_jax,
+                   lk=lk_params_from_jax, matcher=stripe_matcher_params_from_jax)
+
+
+def object_mesher_device_params_from_jax(params) -> ObjectMesherDeviceParams:
+    """``edge_gate_impl`` is dropped: the port gathers, which equals the
+    one-hot form on every output."""
+    return _fields(ObjectMesherDeviceParams, params, tracker=stereo_tracker_params_from_jax)
+
+
+def _tensor(v, dtype: torch.dtype, device=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(v), dtype=dtype, device=device)
+
+
+def track_table_from_jax(table, device=None) -> TrackTable:
+    f32, i32 = torch.float32, torch.int32
+    return TrackTable(
+        ids=_tensor(table.ids, i32, device), pixels=_tensor(table.pixels, f32, device),
+        disparities=_tensor(table.disparities, f32, device),
+        kf_pixels=_tensor(table.kf_pixels, f32, device),
+        kf_disparities=_tensor(table.kf_disparities, f32, device),
+        ages=_tensor(table.ages, i32, device), missed=_tensor(table.missed, i32, device))
+
+
+def stereo_tracker_state_from_jax(state, device=None) -> StereoTrackerState:
+    """The tracker state, with its pyramid ring when it has one."""
+    ring = None if state.ring is None else tuple(
+        _tensor(level, torch.float32, device) for level in state.ring)
+    return StereoTrackerState(
+        table=track_table_from_jax(state.table, device),
+        frame_idx=_tensor(state.frame_idx, torch.int32, device),
+        last_kf_frame=_tensor(state.last_kf_frame, torch.int32, device),
+        next_lmk_id=_tensor(state.next_lmk_id, torch.int32, device),
+        ring=ring)
+
+
+def landmark_graph_from_jax(graph, device=None) -> LandmarkGraph:
+    return LandmarkGraph(weights=_tensor(graph.weights, torch.float32, device),
+                         ids=_tensor(graph.ids, torch.int32, device))

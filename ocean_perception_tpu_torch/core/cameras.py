@@ -30,6 +30,15 @@ class PinholeCamera:
     def create(cls, fx, fy, cx, cy, height=0, width=0) -> "PinholeCamera":
         return cls(_f32(fx), _f32(fy), _f32(cx), _f32(cy), int(height), int(width))
 
+    def backproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """(..., 2) pixels and (...,) depths -> (..., 3) camera-frame points."""
+        def div(a, v):  # tensor by tensor: see StereoCamera.disp_to_depth
+            return a / torch.full_like(a, v)
+
+        x = div(uv[..., 0] - self.cx, self.fx)
+        y = div(uv[..., 1] - self.cy, self.fy)
+        return torch.stack([x * depth, y * depth, depth], dim=-1)
+
     def rescale(self, scale: float) -> "PinholeCamera":
         """Scale intrinsics for a resized image (pinhole_camera.hpp Rescale)."""
         s = np.float32(scale)

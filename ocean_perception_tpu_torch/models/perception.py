@@ -1,17 +1,20 @@
-"""The perception step: stereo pair -> disparity -> depth -> enhanced image
-(port of ``ocean_perception_tpu.models.perception``).
+"""The perception step: stereo pair -> disparity -> depth -> enhanced image,
+and the full front end, which adds tracked features -> landmark-graph
+clusters (port of ``ocean_perception_tpu.models.perception``).
 
 Operating point parity with the reference PatchMatch benchmark:
 ``internal_scale=2`` solves disparity at half resolution with max_disp/2
 planes, then upsamples (nearest) and doubles it. Everything runs on the
 inputs' device; on a CUDA device the cost volume and the PatchMatch match
-run on the hand-written kernels in ``csrc/``.
+run on the hand-written kernels in ``csrc/``, and so does the LK tracker.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
+
+import numpy as np
 
 import torch
 
@@ -81,3 +84,55 @@ def perception_step(
     else:
         enhanced = left_rgb
     return PerceptionOutput(disparity=disp, depth=depth, enhanced_left=enhanced)
+
+
+class FullFrontendOutput(NamedTuple):
+    perception: PerceptionOutput
+    mesher: "object"         # mesher.object_mesher.MesherDeviceOutput
+    tracker_state: "object"  # tracking.stereo_tracker.StereoTrackerState
+    graph: "object"          # mesher.landmark_graph.LandmarkGraph
+
+
+def full_frontend_step(
+    tracker_state,
+    graph,
+    prev_left_gray: torch.Tensor,
+    left_rgb: torch.Tensor,
+    right_rgb: torch.Tensor,
+    rig: StereoCamera,
+    config: PerceptionConfig = PerceptionConfig(),
+    mesher_params=None,
+    mesher_scale: int = 1,
+) -> Tuple[FullFrontendOutput, torch.Tensor]:
+    """camera -> enhanced -> disparity -> tracked features -> landmark-graph
+    clusters for one frame, on the inputs' device, with no branch on a
+    device value. The host threads the state between frames and runs the
+    per-cluster Delaunay (``mesher.object_mesher.build_meshes``).
+
+    ``mesher_scale`` (a power of two) runs the tracking/mesher half on
+    pyr_down'ed grays (the reference mesher node's ``mesher_input_height``).
+    Its pixels and disparities are then in downscaled coordinates, and the
+    tracker state must be created with the downscaled image shape; the
+    perception half always runs at full resolution.
+
+    Returns (FullFrontendOutput, cur_left_gray): feed cur_left_gray back as
+    prev_left_gray next frame (it is at mesher scale).
+    """
+    from ..mesher.object_mesher import ObjectMesherDeviceParams, mesher_device_step
+
+    if mesher_scale < 1 or (mesher_scale & (mesher_scale - 1)):
+        raise ValueError(f"mesher_scale must be a power of two, got {mesher_scale}")
+    mesher_params = mesher_params or ObjectMesherDeviceParams()
+    out = perception_step(left_rgb, right_rgb, rig, config)
+    gray_l = to_grayscale(torch.as_tensor(left_rgb).float())
+    gray_r = to_grayscale(torch.as_tensor(right_rgb).float())
+    for _ in range(mesher_scale.bit_length() - 1):
+        gray_l = pyr_down(gray_l)
+        gray_r = pyr_down(gray_r)
+    # fx scales with the image; disparities are measured at 1/s resolution.
+    fxb = np.float32(rig.fx) * np.float32(rig.baseline) / np.float32(mesher_scale)
+    fxb = torch.full((), float(fxb), dtype=torch.float32, device=gray_l.device)
+    new_state, new_graph, mesh_out = mesher_device_step(
+        tracker_state, graph, prev_left_gray, gray_l, gray_r, fxb, mesher_params)
+    return FullFrontendOutput(perception=out, mesher=mesh_out, tracker_state=new_state,
+                              graph=new_graph), gray_l

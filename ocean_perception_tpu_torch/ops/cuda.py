@@ -1,17 +1,18 @@
 """Build, load and launch the hand-written Hopper kernels in ``csrc/``.
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded through ``ctypes``. The build runs at first
-use, into ``ocean_perception_tpu_torch/_build/<hash>/``, keyed by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads the cached library.
+with a plain C interface, loaded through ``ctypes``: one ``nvcc`` per source,
+all started together, then one link. The build runs at first use, into
+``ocean_perception_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one loads the
+cached library.
 
 Each wrapper below checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if
 the launch was refused, and adds one to its entry in :data:`LAUNCHES`. The
 wrappers only take CUDA tensors; the plain PyTorch twins live beside the
 public functions that dispatch to them (``stereo/cost.py``,
-``stereo/patchmatch.py``).
+``stereo/patchmatch.py``, ``tracking/lk.py``).
 """
 
 from __future__ import annotations
@@ -30,15 +31,16 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("cost_volume.cu", "patchmatch.cu")
+SOURCES = ("cost_volume.cu", "patchmatch.cu", "lk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"cost_volume": 0, "pm_refresh": 0, "pm_propagate": 0, "pm_mask_background": 0}
+LAUNCHES = {"cost_volume": 0, "pm_refresh": 0, "pm_propagate": 0, "pm_mask_background": 0,
+            "lk_prep": 0, "lk_walk": 0}
 
 
 def reset_launches() -> None:
@@ -73,17 +75,29 @@ def build(verbose: bool = False) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     # Build beside the target and rename, so a concurrent or interrupted
     # build never leaves a partial library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(_CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        jobs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(_CSRC / name)]
+            jobs.append((name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, _, proc in jobs:  # wait for every job, failed or not
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{err}")
+            elif verbose:
+                print(err, end="")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 
@@ -93,6 +107,8 @@ _SIGNATURES = {
     "opt_pm_refresh": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
     "opt_pm_propagate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "opt_pm_mask_background": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "opt_lk_prep": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "opt_lk_walk": [_P] * 5 + [_I] * 6 + [_F, _P],
 }
 
 
@@ -204,3 +220,56 @@ def pm_mask_background(C, disp, improve_factor: float, patch_radius: int) -> tor
     _check(err, "pm_mask_background")
     LAUNCHES["pm_mask_background"] += 1
     return out
+
+
+def lk_prep(tmpl, srch, pts, guess, src_t, src_s, win: int, slack: int, pad: int,
+            min_eig: float):
+    """One LK level's prep for K points (csrc/lk.cu): returns corr (K, 2, A, A),
+    scal (K, 8) and the template gate okg (K,) bool; see tracking/lk.py."""
+    _require(tmpl, "tmpl", (torch.float32,))
+    _require(srch, "srch", (torch.float32,))
+    if tmpl.ndim != 3 or srch.ndim != 3 or tmpl.shape[1:] != srch.shape[1:]:
+        raise ValueError(f"tmpl and srch must be (R, H, W) rings of one level, got "
+                         f"{tuple(tmpl.shape)} and {tuple(srch.shape)}")
+    K = pts.shape[0]
+    for name, t in (("pts", pts), ("guess", guess)):
+        _require(t, name, (torch.float32,), (K, 2))
+    for name, t in (("src_t", src_t), ("src_s", src_s)):
+        _require(t, name, (torch.int32,), (K,))
+    if win < 1 or win % 2 == 0 or slack < 1:
+        raise ValueError(f"need an odd window and slack >= 1, got win={win} slack={slack}")
+    A = 2 * slack + 3
+    corr = torch.empty((K, 2, A, A), dtype=torch.float32, device=tmpl.device)
+    scal = torch.empty((K, 8), dtype=torch.float32, device=tmpl.device)
+    okg = torch.empty((K,), dtype=torch.bool, device=tmpl.device)
+    R_t, H, W = tmpl.shape
+    with torch.cuda.device(tmpl.device):
+        err = library().opt_lk_prep(
+            tmpl.data_ptr(), srch.data_ptr(), pts.data_ptr(), guess.data_ptr(),
+            src_t.data_ptr(), src_s.data_ptr(), corr.data_ptr(), scal.data_ptr(),
+            okg.data_ptr(), R_t, srch.shape[0], H, W, K, win, slack, pad, min_eig,
+            _stream(tmpl))
+    _check(err, "lk_prep")
+    LAUNCHES["lk_prep"] += 1
+    return corr, scal, okg
+
+
+def lk_walk(corr, scal, pos0, r: int, ws: int, pad: int, max_iters: int, eps2: float):
+    """One LK level's Gauss-Newton walk for K points (csrc/lk.cu): returns
+    pos (K, 2) and hit (K,) bool; see tracking/lk.py."""
+    K = corr.shape[0]
+    A = corr.shape[-1]
+    _require(corr, "corr", (torch.float32,), (K, 2, A, A))
+    _require(scal, "scal", (torch.float32,), (K, 8))
+    _require(pos0, "pos0", (torch.float32,), (K, 2))
+    if A > 32:
+        raise ValueError(f"surfaces wider than 32 offsets (got {A}) are not supported")
+    pos = torch.empty_like(pos0)
+    hit = torch.empty((K,), dtype=torch.bool, device=corr.device)
+    with torch.cuda.device(corr.device):
+        err = library().opt_lk_walk(
+            corr.data_ptr(), scal.data_ptr(), pos0.data_ptr(), pos.data_ptr(), hit.data_ptr(),
+            K, A, r, ws, pad, max_iters, eps2, _stream(corr))
+    _check(err, "lk_walk")
+    LAUNCHES["lk_walk"] += 1
+    return pos, hit

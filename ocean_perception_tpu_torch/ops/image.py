@@ -1,6 +1,6 @@
 """Dense image operations on float32 tensors (port of ``ocean_perception_tpu.ops.image``).
 
-Only the subset that ``perception_step`` runs. Every function takes an
+Only the subset that ``perception_step`` and ``full_frontend_step`` run. Every function takes an
 (H, W) or (H, W, C) tensor on any device and works on that device.
 
 Two numerical rules keep the port equal to the JAX reference:
@@ -11,13 +11,16 @@ Two numerical rules keep the port equal to the JAX reference:
   Where that decides bits that later stages compare exactly (grayscale,
   gradient magnitude, the cost volume's e-term), :func:`fma_f32` reproduces
   the single rounding on any device.
+- ``torch.sqrt`` on a CPU float32 tensor is not correctly rounded (it
+  differs from IEEE sqrt on about 0.7% of values). :func:`sqrt_f32` is, on
+  any device, and every square root of the port goes through it.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +51,15 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(err > 0, math.inf, -math.inf)
     t = torch.where((err != 0) & ~odd, torch.nextafter(t, toward), t)
     return t.float()
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root.
+
+    The float64 root of a float32 value, rounded once to float32, is the
+    correctly rounded float32 root (53 >= 2*24 + 2 bits), so this equals
+    IEEE ``sqrtf`` (and XLA's, and CUDA's ``__fsqrt_rn``) bit for bit."""
+    return torch.sqrt(x.double()).float()
 
 
 @functools.lru_cache(maxsize=64)
@@ -109,7 +121,7 @@ def gradient_magnitude(image: torch.Tensor) -> torch.Tensor:
     """sqrt(Gx² + Gy²), with Gx² + Gy² fused as XLA fuses it."""
     gx = sobel_x(image)
     gy = sobel_y(image)
-    return torch.sqrt(fma_f32(gx, gx, gy * gy))
+    return sqrt_f32(fma_f32(gx, gx, gy * gy))
 
 
 def _box_sum_1d(padded: torch.Tensor, k: int, axis: int) -> torch.Tensor:
@@ -138,18 +150,29 @@ def box_filter(image: torch.Tensor, radius: int, normalize: bool = True) -> torc
     return out
 
 
-def _window_max(image: torch.Tensor, k: int, axis: int) -> torch.Tensor:
-    """Same-size running max of width k along ``axis`` with edge padding."""
+def _window_reduce(image: torch.Tensor, k: int, axis: int, largest: bool) -> torch.Tensor:
+    """Same-size running max (or min) of width k along ``axis``, edge padded."""
     r = k // 2
     n = image.shape[axis]
     idx = torch.arange(-r, n + k - 1 - r, device=image.device).clamp(0, n - 1)
-    padded = image.index_select(axis, idx)
-    return padded.unfold(axis, k, 1).amax(dim=-1)
+    windows = image.index_select(axis, idx).unfold(axis, k, 1)
+    return windows.amax(dim=-1) if largest else windows.amin(dim=-1)
 
 
 def dilate(image: torch.Tensor, ksize: int) -> torch.Tensor:
     """Grayscale dilation with a square element (cv::dilate), separable."""
-    return _window_max(_window_max(image, ksize, 0), ksize, 1)
+    return _window_reduce(_window_reduce(image, ksize, 0, True), ksize, 1, True)
+
+
+def erode(image: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Grayscale erosion with a square element (cv::erode), separable."""
+    return _window_reduce(_window_reduce(image, ksize, 0, False), ksize, 1, False)
+
+
+def morph_gradient(image: torch.Tensor, ksize: int) -> torch.Tensor:
+    """dilate - erode (cv::morphologyEx MORPH_GRADIENT), the mesher's
+    foreground-texture cue."""
+    return dilate(image, ksize) - erode(image, ksize)
 
 
 def pyr_down(image: torch.Tensor) -> torch.Tensor:
@@ -168,6 +191,14 @@ def pyr_down(image: torch.Tensor) -> torch.Tensor:
         term = w * acc.index_select(1, cols[k : k + 2 * m : 2])
         out = term if out is None else out + term
     return out
+
+
+def image_pyramid(image: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
+    """num_levels images, level 0 = full resolution, each next one pyr_down'ed."""
+    levels = [image]
+    for _ in range(num_levels - 1):
+        levels.append(pyr_down(levels[-1]))
+    return levels
 
 
 @functools.lru_cache(maxsize=32)

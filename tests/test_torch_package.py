@@ -1,6 +1,7 @@
 """Package-level checks of the PyTorch port: it imports no JAX, its GPU smoke
 test refuses to run without a GPU, its kernel wrappers refuse CPU tensors,
-and (on a CUDA machine only) each hand-written kernel equals its plain twin.
+the CPU paths launch no kernel, and (on a CUDA machine only) each
+hand-written kernel equals its plain twin.
 
 The tests marked ``gpu`` skip without a CUDA device. This file imports no
 JAX, so on a GPU machine without JAX they run with
@@ -20,6 +21,7 @@ from ocean_perception_tpu_torch.ops import cuda
 from ocean_perception_tpu_torch.ops.image import gradient_magnitude
 from ocean_perception_tpu_torch.stereo import cost as tcost
 from ocean_perception_tpu_torch.stereo import patchmatch as tpm
+from ocean_perception_tpu_torch.tracking import lk as tlk
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -69,6 +71,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda.pm_propagate(C, x, x.bfloat16(), 1, 1, 4, 5, 1)
     with pytest.raises(ValueError, match="CUDA"):
         cuda.pm_mask_background(C, x, 0.8, 1)
+    ring, pts, src = torch.zeros(2, 8, 16), torch.zeros(4, 2), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.lk_prep(ring, ring, pts, pts, src, src, 7, 4, 5, 1e-9)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda.lk_walk(torch.zeros(4, 2, 11, 11), torch.zeros(4, 8), pts, 3, 17, 5, 30, 1e-4)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -78,6 +85,57 @@ def test_cpu_path_launches_no_kernel():
                                    tpm.PatchMatchParams(max_disp=8, chunks=4, right_wta=True))
     assert out.left.shape == (24, 40)
     assert set(cuda.LAUNCHES.values()) == {0}
+
+
+def _frontend_setup(device, H=48, W=64, K=16):
+    """A small full_frontend_step configuration and a 3-frame sequence that
+    moves 2 px a frame, with an 8 px stereo disparity."""
+    from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
+    from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
+    from ocean_perception_tpu_torch.mesher.object_mesher import ObjectMesherDeviceParams
+    from ocean_perception_tpu_torch.models.perception import PerceptionConfig
+    from ocean_perception_tpu_torch.tracking.detector import DetectorParams
+    from ocean_perception_tpu_torch.tracking.stereo_tracker import (StereoTrackerParams,
+                                                                    StereoTrackerState)
+    from ocean_perception_tpu_torch.tracking.stripe_match import StripeMatcherParams
+
+    rng = np.random.default_rng(43)
+    canvas = rng.random((H, W + 32)).astype(np.float32)
+    frames = [(torch.from_numpy(np.repeat(canvas[:, 2 * i: 2 * i + W, None], 3, 2)).to(device),
+               torch.from_numpy(np.repeat(canvas[:, 2 * i + 8: 2 * i + 8 + W, None], 3, 2)).to(device))
+              for i in range(3)]
+    cam = PinholeCamera.create(100.0, 100.0, W / 2, H / 2, H, W)
+    tracker = StereoTrackerParams(capacity=K, detector=DetectorParams(max_features=K, min_distance=8),
+                                  lk=tlk.LKParams(max_level=1),
+                                  matcher=StripeMatcherParams(max_disp=16, templ_cols=9, templ_rows=7))
+    config = PerceptionConfig(max_disp=16, internal_scale=1, run_enhance=False, chunks=4)
+    return dict(frames=frames, rig=StereoCamera.create(cam, cam, 0.1), config=config,
+                params=ObjectMesherDeviceParams(tracker=tracker, neighbor_radius_px=30.0),
+                state=StereoTrackerState.create(tracker, image_shape=(H, W), device=device),
+                graph=LandmarkGraph.create(K, device=device))
+
+
+def _run_frontend(setup):
+    from ocean_perception_tpu_torch.models.perception import full_frontend_step
+    from ocean_perception_tpu_torch.ops.image import to_grayscale
+
+    state, graph = setup["state"], setup["graph"]
+    prev = to_grayscale(setup["frames"][0][0])
+    outs = []
+    for left, right in setup["frames"]:
+        out, prev = full_frontend_step(state, graph, prev, left, right, setup["rig"],
+                                       setup["config"], setup["params"])
+        state, graph = out.tracker_state, out.graph
+        outs.append(out)
+    return outs
+
+
+def test_cpu_frontend_launches_no_kernel():
+    cuda.reset_launches()
+    outs = _run_frontend(_frontend_setup("cpu"))
+    assert set(cuda.LAUNCHES.values()) == {0}
+    table = outs[-1].tracker_state.table
+    assert (table.ids >= 0).sum() >= 8 and (table.missed == 0).sum() >= 8
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -140,7 +198,8 @@ def test_patchmatch_kernels_match_plain(cuda_device, bf16):
 
     cuda.reset_launches()
     full = tpm._match_one_side(C, seed, noise, p)
-    assert cuda.LAUNCHES == {"cost_volume": 0, "pm_refresh": 2, "pm_propagate": 8, "pm_mask_background": 1}
+    assert cuda.LAUNCHES == {"cost_volume": 0, "pm_refresh": 2, "pm_propagate": 8, "pm_mask_background": 1,
+                             "lk_prep": 0, "lk_walk": 0}
     plain = seed
     for it in range(p.iters):
         plain = tpm.add_foreground_noise(plain, noise, p.noise_scale0 / 2.0**it)
@@ -158,3 +217,46 @@ def test_gpu_matches_cpu_end_to_end(cuda_device):
     gpu = tpm.patchmatch_disparity(l, r, p)
     cpu = tpm.patchmatch_disparity(l.cpu(), r.cpu(), p)
     assert torch.equal(gpu.left.cpu(), cpu.left)
+
+
+@pytest.mark.gpu
+def test_lk_kernels_match_plain(cuda_device):
+    """lk_prep and lk_walk against their twins on a 3-frame ring, both
+    directions, with points at the borders, outside the image and NaN."""
+    rng = np.random.default_rng(44)
+    ring = torch.from_numpy(rng.random((3, 90, 160)).astype(np.float32)).to(cuda_device)
+    cur = ring[1:2] * 0.5 + 0.25
+    K = 200
+    pts = torch.from_numpy(np.stack([rng.uniform(-5, 165, K), rng.uniform(-5, 95, K)], 1)
+                           .astype(np.float32)).to(cuda_device)
+    pts[0] = float("nan")
+    guess = pts + 1.25
+    src = torch.from_numpy(rng.integers(0, 3, K).astype(np.int32)).to(cuda_device)
+    zero = torch.zeros_like(src)
+    for tmpl, srch, st, ss in ((ring, cur, src, zero), (cur, ring, zero, src)):
+        for win in (21, 15):
+            kw = dict(win=win, slack=4, pad=12, min_eig_threshold=1.5e-9)
+            before = cuda.LAUNCHES["lk_prep"]
+            got = tlk.lk_prep(tmpl, srch, pts, guess, st, ss, **kw)
+            assert cuda.LAUNCHES["lk_prep"] == before + 1
+            want = tlk.lk_prep_plain(tmpl, srch, pts, guess, st, ss, **kw)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            wk = dict(r=win // 2, ws=win + 10, pad=12, max_iters=30, eps=0.01)
+            pos_k, hit_k = tlk.lk_walk(*got[:2], guess, **wk)
+            pos_p, hit_p = tlk.lk_walk_plain(*got[:2], guess, **wk)
+            assert torch.equal(pos_k.nan_to_num(-1e9), pos_p.nan_to_num(-1e9))
+            assert torch.equal(hit_k, hit_p)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_frontend_gpu_matches_cpu(cuda_device):
+    cuda.reset_launches()
+    gpu = _run_frontend(_frontend_setup(cuda_device))
+    assert cuda.LAUNCHES["lk_prep"] == cuda.LAUNCHES["lk_walk"] == 3 * 4
+    cpu = _run_frontend(_frontend_setup("cpu"))
+    for g, c in zip(gpu, cpu):
+        assert torch.equal(g.mesher.labels.cpu(), c.mesher.labels)
+        assert torch.equal(g.tracker_state.table.ids.cpu(), c.tracker_state.table.ids)
+        assert torch.allclose(g.mesher.pixels.cpu(), c.mesher.pixels, atol=1e-3)
