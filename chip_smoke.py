@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two entry points at the bench's full width (1280x720 RGB,
+Drives the port's entry points at the bench's full width (1280x720 RGB,
 max_disp=128, internal_scale=2, enhancement on) on synthetic scenes of known
 disparity and motion, in phases:
 
@@ -13,26 +13,40 @@ disparity and motion, in phases:
    counts, finite outputs and the disparity against the scene's truth;
    then the device time of each stage;
 5. the same perception frame through the port on the CPU, against the card;
-6. the two LK kernels against their twins at the 720p shapes of
+6. ``build_volumes`` (bf16 and float32) and each strip-layout PatchMatch
+   kernel against their twins at the 720p shapes (bit-identical), with
+   both times, then the whole strip-volume match;
+7. ``perception_step`` with ``use_strip_volumes=True``: 8 frames, launch
+   counts, and a disparity equal bit for bit to phase 4's on the same frame;
+8. the other stereo configurations at 720p: the SGM and WTA engines of
+   ``perception_step`` and two-sided and ZNCC PatchMatch (through
+   ``estimate_disparity`` at the perception step's half resolution, then
+   upsampled as the step does): ms/frame, accuracy, and one frame each
+   against the CPU;
+9. the two LK kernels against their twins at the 720p shapes of
    ``full_frontend_step`` (K=200 slots, a 4-frame ring, 4 levels, forward
    and backward; bit-identical), with both times;
-7. ``full_frontend_step`` end to end (tracker with the pyramid ring, stripe
+10. ``full_frontend_step`` end to end (tracker with the pyramid ring, stripe
    matcher, landmark graph) over 8 frames of a sequence that moves -2 px a
    frame with an 8 px stereo disparity: launch counts, finite outputs, the
    track error against the known motion, the stripe disparities, ms/frame,
    the tracker's share, host syncs per frame and the stage times;
-8. the same frontend frame through the port on the CPU, against the card.
+11. the same frontend frame through the port on the CPU, against the card.
 
 Any failure raises and exits nonzero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
-power limit; the one before that lists each kernel with its launches on the
-main path, its error against the plain twin and both times.
+power limit; the one before that lists each kernel with its launches on its
+own path (launch counts are zeroed just before each path is driven and read
+just after), its error against the plain twin, its time and its twin's, and
+its bound: the larger of the bytes it must move over 3.35 TB/s and the
+operations it must do over 67 TFLOP/s (float32), from this run's shapes.
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -50,8 +64,10 @@ from ocean_perception_tpu_torch.models.perception import (PerceptionConfig, full
                                                           perception_step)
 from ocean_perception_tpu_torch.ops import cuda
 from ocean_perception_tpu_torch.ops.image import (gradient_magnitude, image_pyramid, pyr_down,
-                                                  to_grayscale)
+                                                  resize, to_grayscale)
+from ocean_perception_tpu_torch.stereo import cost as sc
 from ocean_perception_tpu_torch.stereo import patchmatch as pm
+from ocean_perception_tpu_torch.stereo.api import estimate_disparity
 from ocean_perception_tpu_torch.stereo.cost import cost_volume_plain
 from ocean_perception_tpu_torch.tracking import lk
 from ocean_perception_tpu_torch.tracking.stereo_tracker import StereoTrackerState
@@ -60,26 +76,36 @@ H, W = 720, 1280
 MAX_DISP, SCALE = 128, 2
 TRUE_DISP = 8
 N_FRAMES = 8
+N_ENGINE_FRAMES = 3
 N_TIMED = 20
 # Launches of each kernel per frame of each path.
 PER_FRAME = {"cost_volume": 1, "pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}
+PER_STRIP_FRAME = {"build_volumes": 1, "pm_refresh_strip": 3, "pm_propagate_strip": 12,
+                   "pm_mask_background_strip": 1}
 PER_FRONTEND_FRAME = dict(PER_FRAME, lk_prep=8, lk_walk=8)  # 4 levels x forward/backward
 SHIFT = 2  # frontend sequence: features move -SHIFT px a frame
+PM_CU = "ocean_perception_tpu_torch/csrc/patchmatch.cu"
 SOURCES = {
     "cost_volume": ("ocean_perception_tpu_torch/csrc/cost_volume.cu",
                     "ocean_perception_tpu/ops/pallas/cost_volume.py:97"),
-    "pm_refresh": ("ocean_perception_tpu_torch/csrc/patchmatch.cu",
-                   "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
-    "pm_propagate": ("ocean_perception_tpu_torch/csrc/patchmatch.cu",
-                     "ocean_perception_tpu/ops/pallas/propagate.py:115"),
-    "pm_mask_background": ("ocean_perception_tpu_torch/csrc/patchmatch.cu",
-                           "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
+    "pm_refresh": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
+    "pm_propagate": (PM_CU, "ocean_perception_tpu/ops/pallas/propagate.py:115"),
+    "pm_mask_background": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
+    "build_volumes": ("ocean_perception_tpu_torch/csrc/volume_build.cu",
+                      "ocean_perception_tpu/ops/pallas/volume_build.py:242"),
+    "pm_refresh_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
+    "pm_propagate_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
+    "pm_mask_background_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
     "lk_prep": ("ocean_perception_tpu_torch/csrc/lk.cu",
                 "ocean_perception_tpu/ops/pallas/lk_prep.py:291"),
     "lk_walk": ("ocean_perception_tpu_torch/csrc/lk.cu",
                 "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
 }
-PASSES = ((+1, 1), (+1, 0), (-1, 1), (-1, 0))  # R+ C+ R- C-
+# H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 rate outside
+# the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+PASSES = pm.PASSES  # R+ C+ R- C-
 
 
 def make_canvas() -> np.ndarray:
@@ -128,6 +154,42 @@ def require_equal(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
                              f"(max |diff| {max_abs(a, b)})")
 
 
+def require_launches(tag: str, launches: dict, per_frame: dict, frames: int) -> None:
+    """Each kernel of per_frame ran per_frame[k] times a frame; every other
+    kernel ran no time."""
+    want = {k: per_frame.get(k, 0) * frames for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} over {frames} frames, expected {want}")
+
+
+def bound(nbytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def pm_bounds(H: int, W: int, D: int, esize: int, p) -> dict:
+    """Bytes bounds of the three PatchMatch kernels on an (H, W) front: each
+    (H, W) input read once and each output written once, plus the volume
+    elements the lookups need (one a pixel for the refresh, two for the mask,
+    one a scan position for a pass). A pass is also a chain of chunk+2*halo
+    dependent loads, which no bytes bound sees."""
+    px = H * W
+    passes = []
+    for _, axis in PASSES:
+        dim, lanes = (W, H) if axis == 1 else (H, W)
+        chunks = sc._effective_chunks(dim, pm._strips(p, axis))
+        steps = chunks * lanes * (dim // chunks + 2 * p.halo)
+        passes.append(bound(2 * px * (4 + esize) + steps * esize)["bound_ms"])
+    return {
+        "refresh": bound(px * (4 + 4 + esize + 4 + esize)),
+        "propagate": dict(bound_ms=statistics.mean(passes), bound_by="bytes"),
+        "mask": bound(px * (4 + 2 * esize + 4)),
+    }
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -161,28 +223,28 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
     C = cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16)
     C_plain = cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16)
     require_equal("cost_volume", C, C_plain)
+    Hs, Ws = iml.shape
     rows["cost_volume"] = dict(
         max_abs_err=max_abs(C, C_plain),
         ms=gpu_ms(lambda: cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16)),
         plain_ms=gpu_ms(lambda: cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16)),
+        **bound(4 * Hs * Ws * 4 + C.numel() * C.element_size()),
     )
+    bounds = pm_bounds(Hs, Ws, D, C.element_size(), p)
 
     seed = pm.sparse_wta_seed(C, p)
     noise = pm.unit_noise(iml.shape, p.noise_seed, device=dev)
     scale, pr = p.noise_scale0, p.patch_radius
 
-    def refresh_plain(disp):
-        disp = pm.add_foreground_noise(disp, noise, scale)
-        return disp, pm._full_cost_map(C, disp, pr)
-
     d_k, c_k = cuda.pm_refresh(C, seed, noise, scale, pr)
-    d_p, c_p = refresh_plain(seed)
+    d_p, c_p = pm._refresh_plain(C, seed, noise, scale, pr)
     require_equal("pm_refresh disp", d_k, d_p)
     require_equal("pm_refresh cost", c_k, c_p)
     rows["pm_refresh"] = dict(
         max_abs_err=max(max_abs(d_k, d_p), max_abs(c_k, c_p)),
         ms=gpu_ms(lambda: cuda.pm_refresh(C, seed, noise, scale, pr)),
-        plain_ms=gpu_ms(lambda: refresh_plain(seed)),
+        plain_ms=gpu_ms(lambda: pm._refresh_plain(C, seed, noise, scale, pr)),
+        **bounds["refresh"],
     )
 
     err, ms, plain_ms = 0.0, [], []
@@ -204,7 +266,8 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
         ms.append(gpu_ms(kernel))
         plain_ms.append(gpu_ms(plain))
         print(f"[kernels] {tag}: {ms[-1]:.4f} ms vs plain {plain_ms[-1]:.4f} ms, {chunks} strips")
-    rows["pm_propagate"] = dict(max_abs_err=err, ms=statistics.mean(ms), plain_ms=statistics.mean(plain_ms))
+    rows["pm_propagate"] = dict(max_abs_err=err, ms=statistics.mean(ms), plain_ms=statistics.mean(plain_ms),
+                                **bounds["propagate"])
 
     final = pm._propagate_plain(C, d_p, c_p, -1, 0, p)[0]
     m_k = cuda.pm_mask_background(C, final, p.improve_factor, pr)
@@ -214,6 +277,7 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
         max_abs_err=max_abs(m_k, m_p),
         ms=gpu_ms(lambda: cuda.pm_mask_background(C, final, p.improve_factor, pr)),
         plain_ms=gpu_ms(lambda: pm.mask_background_plain(C, final, p)),
+        **bounds["mask"],
     )
 
     # The whole left-side match (K3's composition): kernels vs plain twins.
@@ -238,20 +302,30 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
     return rows
 
 
-def phase_end_to_end(left_rgb, right_rgb, rig, config) -> tuple[dict, torch.Tensor]:
+def accuracy(disp: torch.Tensor) -> tuple[float, float]:
+    """Median |disparity - TRUE_DISP| over valid pixels, and the valid fraction."""
+    valid = disp > 0
+    if not valid.any():
+        raise AssertionError("no valid disparity")
+    return float((disp[valid] - TRUE_DISP).abs().median()), float(valid.float().mean())
+
+
+def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
+                     per_frame=PER_FRAME) -> tuple[dict, torch.Tensor]:
     """N_FRAMES perturbed frames through perception_step; checks launches,
     finiteness and accuracy; returns the launch counts and frame 0's disparity."""
+    dev = left_rgb.device
     frames = [left_rgb + float(i) * 1e-6 for i in range(N_FRAMES)]
-    perception_step(frames[0], right_rgb, rig, config)  # warm-up
+    perception_step(frames[0], right_rgb, rig, config, device=dev)  # warm-up
     torch.cuda.synchronize()
 
     cuda.reset_launches()
-    digest = torch.zeros((), device=left_rgb.device, dtype=torch.float64)
+    digest = torch.zeros((), device=dev, dtype=torch.float64)
     outs = []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for f in frames:
-        out = perception_step(f, right_rgb, rig, config)
+        out = perception_step(f, right_rgb, rig, config, device=dev)
         # Consume every output, so no stage's work can be skipped.
         digest += out.disparity.sum() + out.depth.sum() + out.enhanced_left.sum()
         outs.append(out)
@@ -260,10 +334,7 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config) -> tuple[dict, torch.Tens
     launches = dict(cuda.LAUNCHES)
     ms_frame = start.elapsed_time(end) / N_FRAMES
 
-    for name, per in PER_FRAME.items():
-        if launches[name] != per * N_FRAMES:
-            raise AssertionError(f"{name}: {launches[name]} launches over {N_FRAMES} frames, "
-                                 f"expected {per * N_FRAMES}")
+    require_launches(tag, launches, per_frame, N_FRAMES)
     for i, out in enumerate(outs):
         for field, t in out._asdict().items():
             if not torch.isfinite(t).all():
@@ -271,14 +342,12 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config) -> tuple[dict, torch.Tens
         if out.disparity.shape != (H, W) or out.enhanced_left.shape != (H, W, 3):
             raise AssertionError(f"frame {i}: bad output shapes")
     disp = outs[0].disparity
-    valid = disp > 0
-    med = float((disp[valid] - TRUE_DISP).abs().median())
-    frac = float(valid.float().mean())
+    med, frac = accuracy(disp)
     if not med < 1.0:
         raise AssertionError(f"median |disp - {TRUE_DISP}| = {med} px over valid pixels")
     if not frac > 0.5:
         raise AssertionError(f"valid fraction {frac}")
-    print(f"[e2e] {N_FRAMES} frames: {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps), "
+    print(f"[{tag}] {N_FRAMES} frames: {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps), "
           f"median |disp - {TRUE_DISP}| {med:.4f} px, valid {frac:.4f}, digest {float(digest):.6e}, "
           f"launches {launches}")
     return launches, disp
@@ -287,7 +356,6 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config) -> tuple[dict, torch.Tens
 def phase_stage_times(left_rgb, right_rgb, rig, config) -> None:
     """Device time of each stage of perception_step, one frame at a time."""
     from ocean_perception_tpu_torch.imaging.enhance import enhance_underwater
-    from ocean_perception_tpu_torch.ops.image import resize
     from ocean_perception_tpu_torch.stereo.cost import cost_volume, subpixel_refine
 
     p = pm.PatchMatchParams(max_disp=MAX_DISP // SCALE, right_wta=True, volume_bf16=True)
@@ -325,7 +393,7 @@ def phase_stage_times(left_rgb, right_rgb, rig, config) -> None:
 
 def phase_cpu_parity(left_rgb, right_rgb, rig, config, disp_gpu: torch.Tensor) -> None:
     t0 = time.perf_counter()
-    disp_cpu = perception_step(left_rgb.cpu(), right_rgb.cpu(), rig, config).disparity
+    disp_cpu = perception_step(left_rgb.cpu(), right_rgb.cpu(), rig, config, device="cpu").disparity
     diff = (disp_gpu.cpu() - disp_cpu).abs()
     close = float((diff <= 1e-3).float().mean())
     med = float(diff.median())
@@ -333,6 +401,215 @@ def phase_cpu_parity(left_rgb, right_rgb, rig, config, disp_gpu: torch.Tensor) -
           f"{100 * close:.3f}% of pixels within 1e-3 px, median |diff| {med}, max {float(diff.max())}")
     if close < 0.99 or med != 0.0:
         raise AssertionError("card and CPU disparities disagree")
+
+
+def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
+    """build_volumes (bf16 and float32) and each strip-layout PatchMatch
+    kernel against its plain twin on identical inputs at 720p shapes, then
+    the whole strip-volume match against its twins and the (H, W, D) match."""
+    dev = left_rgb.device
+    iml = pyr_down(to_grayscale(left_rgb))
+    imr = pyr_down(to_grayscale(right_rgb))
+    gl, gr = gradient_magnitude(iml), gradient_magnitude(imr)
+    D = MAX_DISP // SCALE
+    Hs, Ws = iml.shape
+    p = pm.PatchMatchParams(max_disp=D, right_wta=True, volume_bf16=True, use_strip_volumes=True)
+    g = sc.strip_geometry(Hs, Ws, D, p.chunks, p.chunks_y)
+    a, b = float(np.float32(p.alpha)), float(np.float32(1.0 - p.alpha))
+    print(f"[strips] V_row {(g.chunk_x, g.chunks_x, D, Hs)}, V_col {(g.chunk_y, g.chunks_y, D, Ws)}")
+    rows = {}
+
+    for dtype in (torch.float32, torch.bfloat16):  # bf16, the production dtype, last
+        def kernel():
+            return cuda.build_volumes(iml, imr, gl, gr, D, a, b, g.chunks_x, g.chunks_y, dtype)
+
+        def plain():
+            return sc.build_strip_volumes_plain(iml, imr, gl, gr, D, p.alpha, p.chunks, p.chunks_y,
+                                                dtype)
+
+        (vr, vc), (vr_p, vc_p) = kernel(), plain()
+        require_equal(f"build_volumes V_row {dtype}", vr, vr_p)
+        require_equal(f"build_volumes V_col {dtype}", vc, vc_p)
+        rows["build_volumes"] = dict(
+            max_abs_err=max(max_abs(vr, vr_p), max_abs(vc, vc_p)), ms=gpu_ms(kernel),
+            plain_ms=gpu_ms(plain),
+            **bound(4 * Hs * Ws * 4 + (vr.numel() + vc.numel()) * vr.element_size()))
+        print(f"[strips] build_volumes {dtype}: {rows['build_volumes']['ms']:.4f} ms vs plain "
+              f"{rows['build_volumes']['plain_ms']:.4f} ms, bound "
+              f"{rows['build_volumes']['bound_ms']:.4f} ms")
+    C = sc.volume_from_col_strips(vc)
+    seed = pm.sparse_wta_seed(C, p)
+    noise = pm.unit_noise(iml.shape, p.noise_seed, device=dev)
+    scale, pr = p.noise_scale0, p.patch_radius
+    bounds = pm_bounds(Hs, Ws, D, vc.element_size(), p)
+
+    d_k, c_k = cuda.pm_refresh_strip(vc, seed, noise, scale, pr)
+    d_p, c_p = pm._refresh_strip_plain(vc, seed, noise, scale, pr)
+    require_equal("pm_refresh_strip disp", d_k, d_p)
+    require_equal("pm_refresh_strip cost", c_k, c_p)
+    rows["pm_refresh_strip"] = dict(
+        max_abs_err=max(max_abs(d_k, d_p), max_abs(c_k, c_p)),
+        ms=gpu_ms(lambda: cuda.pm_refresh_strip(vc, seed, noise, scale, pr)),
+        plain_ms=gpu_ms(lambda: pm._refresh_strip_plain(vc, seed, noise, scale, pr)),
+        **bounds["refresh"])
+
+    err, ms, plain_ms = 0.0, [], []
+    for direction, axis in PASSES:
+        V = vr if axis == 1 else vc
+
+        def kernel():
+            return cuda.pm_propagate_strip(V, d_p, c_p, direction, axis, p.halo, pr)
+
+        def plain():
+            return pm._propagate_strip_plain(V, d_p, c_p, direction, axis, p)
+
+        (dk, ck), (dp, cp) = kernel(), plain()
+        tag = f"pm_propagate_strip dir={direction:+d} axis={axis}"
+        require_equal(tag + " disp", dk, dp)
+        require_equal(tag + " cost", ck, cp)
+        err = max(err, max_abs(dk, dp), max_abs(ck, cp))
+        ms.append(gpu_ms(kernel))
+        plain_ms.append(gpu_ms(plain))
+        print(f"[strips] {tag}: {ms[-1]:.4f} ms vs plain {plain_ms[-1]:.4f} ms, {V.shape[1]} strips")
+    rows["pm_propagate_strip"] = dict(max_abs_err=err, ms=statistics.mean(ms),
+                                      plain_ms=statistics.mean(plain_ms), **bounds["propagate"])
+
+    final = pm._propagate_strip_plain(vc, d_p, c_p, -1, 0, p)[0]
+    m_k = cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr)
+    m_p = pm.mask_background_strip_plain(vc, final, p)
+    require_equal("pm_mask_background_strip", m_k, m_p)
+    rows["pm_mask_background_strip"] = dict(
+        max_abs_err=max_abs(m_k, m_p),
+        ms=gpu_ms(lambda: cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr)),
+        plain_ms=gpu_ms(lambda: pm.mask_background_strip_plain(vc, final, p)),
+        **bounds["mask"])
+
+    # The whole strip-volume match (K3' over K4's layouts): kernels vs twins.
+    def match_plain():
+        disp = seed
+        for it in range(p.iters):
+            disp, cost = pm._refresh_strip_plain(vc, disp, noise, p.noise_scale0 / 2.0**it, pr)
+            for direction, axis in PASSES:
+                V = vr if axis == 1 else vc
+                disp, cost = pm._propagate_strip_plain(V, disp, cost, direction, axis, p)
+        return pm.mask_background_strip_plain(vc, disp, p)
+
+    full_k, full_p = pm._match_one_side_strips(vr, vc, seed, noise, p), match_plain()
+    require_equal("match_one_side_strips", full_k, full_p)
+    require_equal("match_one_side_strips vs the (H, W, D) match", full_k,
+                  pm._match_one_side(C, seed, noise, p))
+    k_ms = gpu_ms(lambda: pm._match_one_side_strips(vr, vc, seed, noise, p))
+    hwd_ms = gpu_ms(lambda: pm._match_one_side(C, seed, noise, p))
+    p_ms = gpu_ms(match_plain, 5)
+    print(f"[strips] match_one_side_strips (3 refresh + 12 passes + mask): {k_ms:.4f} ms vs "
+          f"(H, W, D) match {hwd_ms:.4f} ms vs plain {p_ms:.4f} ms, "
+          f"valid {(full_k > 0).float().mean().item():.3f}")
+    # The dense half on each layout, in turns (H, W, D), strips, strips,
+    # (H, W, D): the volume build, seed, match, right WTA and subpixel.
+    p_hwd = dataclasses.replace(p, use_strip_volumes=False)
+    turns = [gpu_ms(lambda q=q: pm.patchmatch_disparity(iml, imr, q), 10)
+             for q in (p_hwd, p, p, p_hwd)]
+    print(f"[strips] patchmatch_disparity at {Hs}x{Ws}, in turns: (H, W, D) {turns[0]:.4f}, "
+          f"strips {turns[1]:.4f}, strips {turns[2]:.4f}, (H, W, D) {turns[3]:.4f} ms")
+    for name, row in rows.items():
+        print(f"[strips] {name}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), max |diff| {row['max_abs_err']}")
+    return rows
+
+
+def dense_disparity(left_rgb, right_rgb, params: pm.PatchMatchParams, device) -> torch.Tensor:
+    """The dense half of perception_step with another PatchMatch
+    configuration: grays at half resolution, estimate_disparity, then the
+    step's nearest upsampling and doubling."""
+    left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
+    right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
+    gray_l = pyr_down(to_grayscale(left_rgb))
+    gray_r = pyr_down(to_grayscale(right_rgb))
+    r = estimate_disparity(gray_l, gray_r, engine="patchmatch", patchmatch_params=params)
+    return resize(r.left, (H, W), method="nearest") * float(SCALE)
+
+
+def phase_engines(left_rgb, right_rgb, rig) -> dict:
+    """The other stereo configurations at 720p: N_ENGINE_FRAMES timed frames
+    each after a warm-up, launch counts, accuracy, and one frame against
+    the CPU (within 1e-3 px on >= 99% of pixels)."""
+    D = MAX_DISP // SCALE
+    engines = {
+        "sgm": (lambda l, r, dev: perception_step(l, r, rig, PerceptionConfig(
+            engine="sgm", max_disp=MAX_DISP, internal_scale=SCALE, run_enhance=False),
+            device=dev).disparity, {"cost_volume": 1}),
+        "wta": (lambda l, r, dev: perception_step(l, r, rig, PerceptionConfig(
+            engine="wta", max_disp=MAX_DISP, internal_scale=SCALE, run_enhance=False),
+            device=dev).disparity, {"cost_volume": 1}),
+        "patchmatch two-sided": (lambda l, r, dev: dense_disparity(l, r, pm.PatchMatchParams(
+            max_disp=D, right_wta=False, volume_bf16=True), dev),
+            {"cost_volume": 1, "pm_refresh": 6, "pm_propagate": 24, "pm_mask_background": 2}),
+        "patchmatch zncc": (lambda l, r, dev: dense_disparity(l, r, pm.PatchMatchParams(
+            max_disp=D, right_wta=True, cost="zncc"), dev),
+            {"pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}),
+    }
+    dev = left_rgb.device
+    results = {}
+    for name, (run, per_frame) in engines.items():
+        frames = [left_rgb + float(i) * 1e-6 for i in range(N_ENGINE_FRAMES)]
+        run(frames[0], right_rgb, dev)  # warm-up
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        disps = [run(f, right_rgb, dev) for f in frames]
+        end.record()
+        end.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        require_launches(name, dict(cuda.LAUNCHES), per_frame, N_ENGINE_FRAMES)
+        ms_frame = start.elapsed_time(end) / N_ENGINE_FRAMES
+        disp = disps[0]
+        if disp.shape != (H, W) or not torch.isfinite(disp).all():
+            raise AssertionError(f"{name}: bad disparity")
+        med, frac = accuracy(disp)
+        t0 = time.perf_counter()
+        disp_cpu = run(frames[0].cpu(), right_rgb.cpu(), "cpu")
+        cpu_s = time.perf_counter() - t0
+        close = float(((disp.cpu() - disp_cpu).abs() <= 1e-3).float().mean())
+        results[name] = dict(ms_frame=ms_frame, median_err=med, valid=frac, cpu_close=close)
+        print(f"[engines] {name}: {ms_frame:.3f} ms/frame over {N_ENGINE_FRAMES} frames, "
+              f"median |disp - {TRUE_DISP}| {med:.4f} px, valid {frac:.4f}, launches {launches}; "
+              f"CPU frame in {cpu_s:.1f} s, "
+              f"{100 * close:.3f}% of pixels within 1e-3 px")
+        if not med < 1.0:
+            raise AssertionError(f"{name}: median |disp - {TRUE_DISP}| = {med} px")
+        if not frac > 0.25:
+            raise AssertionError(f"{name}: valid fraction {frac}")
+        if close < 0.99:
+            raise AssertionError(f"{name}: card and CPU disparities disagree")
+    return results
+
+
+def lk_bounds(calls: list) -> dict:
+    """Bounds of one frame's 8 lk_prep and 8 lk_walk launches, per launch.
+    lk_prep: for each point, the two ST^2 and ws^2 windows read and the
+    (2, A, A) surfaces and 8 scalars written; its operations are the
+    recentring products, the 5 window sums and the 2*A*A surface sums of
+    win^2 multiply-adds. lk_walk: corr, scal and pos0 read, pos and hit
+    written; at most max_iters steps of 2*A*A multiply-adds a point, which
+    never outweighs its bytes, so it is bytes-bound whatever the data."""
+    prep, walk = [], []
+    for name, args, kwargs in calls:
+        if name == "lk_prep":
+            K, win, slack = args[2].shape[0], kwargs["win"], kwargs["slack"]
+            ST, ws, P = win + 3, win + 2 * (slack + 1), win + 2
+            A = ws - win + 1
+            nbytes = K * (4 * (ST * ST + ws * ws) + 4 * 6 + 4 * (2 * A * A + 8) + 1)
+            flops = K * 2 * (P * ST * ST + P * P * ST + 5 * win * win + 2 * A * A * win * win)
+            prep.append(bound(nbytes, flops))
+        else:
+            corr, scal, pos0 = args[:3]
+            K = corr.shape[0]
+            nbytes = 4 * (corr.numel() + scal.numel() + 2 * pos0.numel()) + K
+            walk.append(bound(nbytes))
+    return {name: dict(bound_ms=statistics.mean(b["bound_ms"] for b in rows),
+                       bound_by=rows[0]["bound_by"])
+            for name, rows in (("lk_prep", prep), ("lk_walk", walk))}
 
 
 def record_lk_calls(fn) -> list:
@@ -379,10 +656,13 @@ def phase_lk_kernels(calls: list) -> dict:
         rows[name]["plain_ms"].append(plain_ms)
         shape = "x".join(str(d) for d in args[0].shape)
         print(f"[lk] {name} call {i} ({shape}): {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+    bounds = lk_bounds(calls)
     for name, row in rows.items():
         total, total_plain = sum(row["ms"]), sum(row["plain_ms"])
         row["ms"], row["plain_ms"] = total / 8, total_plain / 8
+        row.update(bounds[name])
         print(f"[lk] {name}: {total:.4f} ms per frame (8 launches) vs plain {total_plain:.4f} ms, "
+              f"bound {row['bound_ms']:.5f} ms a launch ({row['bound_by']}), "
               f"max |diff| {row['max_abs_err']}")
     return rows
 
@@ -399,11 +679,10 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_frontend(canvas, rig, config) -> dict:
+def phase_frontend(canvas, rig, config, dev) -> dict:
     """full_frontend_step over the moving sequence: 4 warm-up frames fill the
     ring (frame 0 is the first keyframe), frame 4 is recorded for the LK
     kernel check, frames 5..12 are timed and checked."""
-    dev = torch.device("cuda", 0)
     params = ObjectMesherDeviceParams()
     frames = [tuple(torch.as_tensor(a, device=dev) for a in make_inputs(canvas, i))
               for i in range(5 + N_FRAMES + 1)]
@@ -413,7 +692,8 @@ def phase_frontend(canvas, rig, config) -> dict:
 
     def step(i):
         nonlocal state, graph, prev
-        out, prev = full_frontend_step(state, graph, prev, *frames[i], rig, config, params)
+        out, prev = full_frontend_step(state, graph, prev, *frames[i], rig, config, params,
+                                       device=dev)
         state, graph = out.tracker_state, out.graph
         return out
 
@@ -447,10 +727,7 @@ def phase_frontend(canvas, rig, config) -> dict:
     launches = dict(cuda.LAUNCHES)
     ms_frame = start.elapsed_time(end) / N_FRAMES
 
-    for name, per in PER_FRONTEND_FRAME.items():
-        if launches[name] != per * N_FRAMES:
-            raise AssertionError(f"frontend {name}: {launches[name]} launches over {N_FRAMES} "
-                                 f"frames, expected {per * N_FRAMES}")
+    require_launches("frontend", launches, PER_FRONTEND_FRAME, N_FRAMES)
     errs, disps = [], []
     for k, out in enumerate(outs):
         for field, t in (*out.perception._asdict().items(),
@@ -504,8 +781,9 @@ def phase_frontend_stage_times(fe, rig, config) -> None:
     pyr = tuple(image_pyramid(gl, p.tracker.lk.max_level + 1))
     st = {}
     st["frame (full_frontend_step)"] = gpu_ms(
-        lambda: full_frontend_step(state, graph, prev, left, right, rig, config, p), 5)
-    st["perception_step"] = gpu_ms(lambda: perception_step(left, right, rig, config), 5)
+        lambda: full_frontend_step(state, graph, prev, left, right, rig, config, p,
+                                   device=left.device), 5)
+    st["perception_step"] = gpu_ms(lambda: perception_step(left, right, rig, config, left.device), 5)
     st["mesher half (mesher_device_step)"] = gpu_ms(
         lambda: mesher_device_step(state, graph, prev, gl, gr, fxb, p), 5)
     st["  tracker (track_and_triangulate)"] = gpu_ms(
@@ -524,7 +802,8 @@ def phase_frontend_stage_times(fe, rig, config) -> None:
     for k, v in st.items():
         print(f"[frontend stages] {k}: {v:.4f} ms ({100.0 * v / frame:.1f}% of the frame)")
     syncs = {
-        "perception_step": count_syncs(lambda: perception_step(left, right, rig, config)),
+        "perception_step": count_syncs(lambda: perception_step(left, right, rig, config,
+                                                               left.device)),
         "tracker": count_syncs(lambda: track_and_triangulate(state, prev, gl, gr, fxb, p.tracker)),
         "mesher half": count_syncs(lambda: mesher_device_step(state, graph, prev, gl, gr, fxb, p)),
     }
@@ -540,7 +819,8 @@ def phase_frontend_cpu_parity(fe, rig, config) -> None:
     state, graph, prev = fe["state"].to(cpu), fe["graph"].to(cpu), fe["prev"].cpu()
     left, right = (t.cpu() for t in fe["frames"][4 + N_FRAMES])
     t0 = time.perf_counter()
-    out, _ = full_frontend_step(state, graph, prev, left, right, rig, config, fe["params"])
+    out, _ = full_frontend_step(state, graph, prev, left, right, rig, config, fe["params"],
+                                device=cpu)
     took = time.perf_counter() - t0
     g, c = fe["out"], out
     gt, ct = g.tracker_state.table, c.tracker_state.table
@@ -573,18 +853,27 @@ def main() -> int:
     phase_stage_times(left_rgb, right_rgb, rig, config)
     phase_cpu_parity(left_rgb, right_rgb, rig, config, disp)
 
-    fe = phase_frontend(canvas, rig, config)
+    rows.update(phase_strip_kernels(left_rgb, right_rgb))
+    strip_config = dataclasses.replace(config, use_strip_volumes=True)
+    strip_launches, strip_disp = phase_end_to_end(left_rgb, right_rgb, rig, strip_config,
+                                                  "strip e2e", PER_STRIP_FRAME)
+    require_equal("strip-volume perception disparity vs the (H, W, D) path's", strip_disp, disp)
+    phase_engines(left_rgb, right_rgb, rig)
+
+    fe = phase_frontend(canvas, rig, config, dev)
     rows.update(phase_lk_kernels(fe["calls"]))
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
 
-    # Launches on each kernel's own path: PatchMatch's from perception_step,
-    # LK's from full_frontend_step.
+    # Launches on each kernel's own path: the (H, W, D) PatchMatch kernels'
+    # from perception_step, the strip kernels' from perception_step with
+    # strip volumes, LK's from full_frontend_step.
+    launches.update({k: strip_launches[k] for k in PER_STRIP_FRAME})
     launches.update({k: fe["launches"][k] for k in ("lk_prep", "lk_walk")})
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
-             launches=launches[k], **rows[k])
-        for k in PER_FRONTEND_FRAME
+             launches=launches[k], library_ms=None, **rows[k])
+        for k in SOURCES
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,8 +6,9 @@ attenuation guess and, for the front end, the tracker state (track table,
 frame counters, pyramid ring) and the landmark graph. The functions here
 read the JAX objects' fields by attribute and ``np.asarray`` (duck-typed, so
 this module imports no JAX) and return the port's frozen dataclasses and
-tensors. Fields that only steer TPU code paths have no counterpart: the
-port has one path.
+tensors. Fields that only choose between TPU code paths that compute the
+same result (scan unrolls, the Pallas routes) have no counterpart; the one
+such choice the port also offers, the strip-volume build, carries over.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from .imaging.enhance import EnhanceParams
 from .mesher.landmark_graph import LandmarkGraph
 from .mesher.object_mesher import ObjectMesherDeviceParams
 from .models.perception import PerceptionConfig
+from .stereo.patchmatch import PatchMatchParams
+from .stereo.sgm import SgmParams
 from .tracking.detector import DetectorParams
 from .tracking.lk import LKParams
 from .tracking.stereo_tracker import StereoTrackerParams, StereoTrackerState
@@ -50,9 +53,10 @@ def enhance_params_from_jax(params) -> EnhanceParams:
 
 
 def perception_config_from_jax(cfg) -> PerceptionConfig:
-    """The port's config for a JAX ``PerceptionConfig``. The JAX fields that
-    only steer TPU code paths (``scan_unroll``, ``use_pallas_*``) have no
-    counterpart: the port has one path."""
+    """The port's config for a JAX ``PerceptionConfig``. ``use_pallas_build``
+    becomes ``use_strip_volumes`` (None, JAX's AUTO, resolves to False);
+    ``scan_unroll`` and ``use_pallas_fused`` are dropped: they choose
+    between TPU paths that compute the same match."""
     return PerceptionConfig(
         engine=str(cfg.engine),
         max_disp=int(cfg.max_disp),
@@ -61,7 +65,22 @@ def perception_config_from_jax(cfg) -> PerceptionConfig:
         enhance=enhance_params_from_jax(cfg.enhance),
         run_enhance=bool(cfg.run_enhance),
         chunks=int(cfg.chunks),
+        use_strip_volumes=bool(cfg.use_pallas_build),
     )
+
+
+def patchmatch_params_from_jax(params) -> PatchMatchParams:
+    """``use_pallas_build`` becomes ``use_strip_volumes`` (None resolves to
+    False); ``scan_unroll``, ``fused_inner_loop`` and the other
+    ``use_pallas_*`` routes are dropped: they compute the same match."""
+    kw = {f: getattr(params, f) for f in PatchMatchParams.__dataclass_fields__
+          if f != "use_strip_volumes"}
+    return PatchMatchParams(**kw, use_strip_volumes=bool(params.use_pallas_build))
+
+
+def sgm_params_from_jax(params) -> SgmParams:
+    """``scan_unroll`` is dropped: it never changes the result."""
+    return SgmParams(**{f: getattr(params, f) for f in SgmParams.__dataclass_fields__})
 
 
 def beta_guess_from_numpy(beta, device=None) -> torch.Tensor:

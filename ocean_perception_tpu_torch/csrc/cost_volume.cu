@@ -18,30 +18,9 @@
 // 32 consecutive elements (64 contiguous bytes in bf16) and its loads of the
 // left image and gradient are broadcasts of one pixel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "cost_terms.cuh"
 
 namespace {
-
-__device__ __forceinline__ float e_term(const float* __restrict__ iml,
-                                        const float* __restrict__ imr,
-                                        const float* __restrict__ gl,
-                                        const float* __restrict__ gr,
-                                        int W, int y, int x, int d,
-                                        float alpha, float beta) {
-  const int xr = x >= d ? x - d : 0;
-  const int i = y * W + x;
-  const int j = y * W + xr;
-  const float a = fabsf(__fsub_rn(iml[i], imr[j]));
-  const float g = fabsf(__fsub_rn(gl[i], gr[j]));
-  return __fmaf_rn(alpha, a, __fmul_rn(beta, g));
-}
-
-__device__ __forceinline__ void store(float* out, long long t, float v) { out[t] = v; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* out, long long t, float v) {
-  out[t] = __float2bfloat16_rn(v);
-}
 
 template <typename T>
 __global__ void cost_volume_kernel(const float* __restrict__ iml,
@@ -59,12 +38,11 @@ __global__ void cost_volume_kernel(const float* __restrict__ iml,
     const int y = (int)(p / W);
     const int ym = max(y - 1, 0), yp = min(y + 1, H - 1);
     const int xm = max(x - 1, 0), xp = min(x + 1, W - 1);
-    float acc = e_term(iml, imr, gl, gr, W, y, x, d, alpha, beta);
-    acc = __fadd_rn(acc, e_term(iml, imr, gl, gr, W, ym, xm, d, alpha, beta));
-    acc = __fadd_rn(acc, e_term(iml, imr, gl, gr, W, ym, xp, d, alpha, beta));
-    acc = __fadd_rn(acc, e_term(iml, imr, gl, gr, W, yp, xm, d, alpha, beta));
-    acc = __fadd_rn(acc, e_term(iml, imr, gl, gr, W, yp, xp, d, alpha, beta));
-    store(out, t, acc);
+    store(out, t, stencil_sum(e_term(iml, imr, gl, gr, W, y, x, d, alpha, beta),
+                              e_term(iml, imr, gl, gr, W, ym, xm, d, alpha, beta),
+                              e_term(iml, imr, gl, gr, W, ym, xp, d, alpha, beta),
+                              e_term(iml, imr, gl, gr, W, yp, xm, d, alpha, beta),
+                              e_term(iml, imr, gl, gr, W, yp, xp, d, alpha, beta)));
   }
 }
 

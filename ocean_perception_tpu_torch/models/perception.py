@@ -4,9 +4,10 @@ clusters (port of ``ocean_perception_tpu.models.perception``).
 
 Operating point parity with the reference PatchMatch benchmark:
 ``internal_scale=2`` solves disparity at half resolution with max_disp/2
-planes, then upsamples (nearest) and doubles it. Everything runs on the
-inputs' device; on a CUDA device the cost volume and the PatchMatch match
-run on the hand-written kernels in ``csrc/``, and so does the LK tracker.
+planes, then upsamples (nearest) and doubles it. Both entry points run on
+the card unless the caller passes ``device="cpu"``: on a CUDA device the
+cost volume and the PatchMatch match run on the hand-written kernels in
+``csrc/``, and so does the LK tracker; on the CPU their plain twins run.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..imaging.enhance import EnhanceParams, enhance_underwater
 from ..ops.image import pyr_down, resize, to_grayscale
 from ..stereo.api import StereoEngine, estimate_disparity
 from ..stereo.patchmatch import PatchMatchParams
+from ..stereo.sgm import SgmParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +37,9 @@ class PerceptionConfig:
     run_enhance: bool = True
     # PatchMatch strip count (the reference's own decomposition).
     chunks: int = 16
+    # PatchMatch over the two strip layouts built straight from the images
+    # (kernel build_volumes and the *_strip match kernels); bit-identical.
+    use_strip_volumes: bool = False
 
 
 class PerceptionOutput(NamedTuple):
@@ -43,19 +48,27 @@ class PerceptionOutput(NamedTuple):
     enhanced_left: torch.Tensor  # (H, W, 3) enhanced left RGB
 
 
+def _device(device) -> torch.device:
+    """The entry points' device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
 def perception_step(
     left_rgb: torch.Tensor,
     right_rgb: torch.Tensor,
     rig: StereoCamera,
     config: PerceptionConfig = PerceptionConfig(),
+    device: torch.device | str = "cuda",
 ) -> PerceptionOutput:
-    """One frame through the dense-vision stack, on the inputs' device."""
-    if config.engine != "patchmatch":
-        raise NotImplementedError(
-            f"engine {config.engine!r} is not ported yet: it comes with slice 3 "
-            "(stereo engines); only 'patchmatch' runs")
-    left_rgb = torch.as_tensor(left_rgb).float()
-    right_rgb = torch.as_tensor(right_rgb).float()
+    """One frame through the dense-vision stack, on ``device``."""
+    if config.engine not in ("patchmatch", "sgm", "wta"):
+        raise ValueError(f"unknown stereo engine {config.engine!r}")
+    device = _device(device)
+    left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
+    right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
     H, W = left_rgb.shape[0], left_rgb.shape[1]
 
     gray_l = to_grayscale(left_rgb)
@@ -69,8 +82,16 @@ def perception_step(
         gray_r = pyr_down(gray_r)
 
     d_small = config.max_disp // scale if scale > 1 else config.max_disp
-    pm = PatchMatchParams(max_disp=d_small, chunks=config.chunks, right_wta=True, volume_bf16=True)
-    result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.PATCHMATCH, patchmatch_params=pm)
+    if config.engine == "patchmatch":
+        pm = PatchMatchParams(max_disp=d_small, chunks=config.chunks, right_wta=True,
+                              volume_bf16=True, use_strip_volumes=config.use_strip_volumes)
+        result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.PATCHMATCH,
+                                    patchmatch_params=pm)
+    elif config.engine == "sgm":
+        result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.SGM,
+                                    sgm_params=SgmParams(max_disp=d_small))
+    else:
+        result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.WTA, max_disp=d_small)
 
     disp = result.left
     if scale > 1:
@@ -103,11 +124,13 @@ def full_frontend_step(
     config: PerceptionConfig = PerceptionConfig(),
     mesher_params=None,
     mesher_scale: int = 1,
+    device: torch.device | str = "cuda",
 ) -> Tuple[FullFrontendOutput, torch.Tensor]:
     """camera -> enhanced -> disparity -> tracked features -> landmark-graph
-    clusters for one frame, on the inputs' device, with no branch on a
-    device value. The host threads the state between frames and runs the
-    per-cluster Delaunay (``mesher.object_mesher.build_meshes``).
+    clusters for one frame, on ``device`` (the state is moved there too),
+    with no branch on a device value. The host threads the state between
+    frames and runs the per-cluster Delaunay
+    (``mesher.object_mesher.build_meshes``).
 
     ``mesher_scale`` (a power of two) runs the tracking/mesher half on
     pyr_down'ed grays (the reference mesher node's ``mesher_input_height``).
@@ -123,9 +146,14 @@ def full_frontend_step(
     if mesher_scale < 1 or (mesher_scale & (mesher_scale - 1)):
         raise ValueError(f"mesher_scale must be a power of two, got {mesher_scale}")
     mesher_params = mesher_params or ObjectMesherDeviceParams()
-    out = perception_step(left_rgb, right_rgb, rig, config)
-    gray_l = to_grayscale(torch.as_tensor(left_rgb).float())
-    gray_r = to_grayscale(torch.as_tensor(right_rgb).float())
+    device = _device(device)
+    left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
+    right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
+    prev_left_gray = torch.as_tensor(prev_left_gray, dtype=torch.float32, device=device)
+    tracker_state, graph = tracker_state.to(device), graph.to(device)
+    out = perception_step(left_rgb, right_rgb, rig, config, device)
+    gray_l = to_grayscale(left_rgb)
+    gray_r = to_grayscale(right_rgb)
     for _ in range(mesher_scale.bit_length() - 1):
         gray_l = pyr_down(gray_l)
         gray_r = pyr_down(gray_r)

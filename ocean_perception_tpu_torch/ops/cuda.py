@@ -13,6 +13,10 @@ the launch was refused, and adds one to its entry in :data:`LAUNCHES`. The
 wrappers only take CUDA tensors; the plain PyTorch twins live beside the
 public functions that dispatch to them (``stereo/cost.py``,
 ``stereo/patchmatch.py``, ``tracking/lk.py``).
+
+The ``*_strip`` PatchMatch wrappers launch the same kernels as their
+namesakes, reading the volume in a strip layout; each has its own entry in
+:data:`LAUNCHES`, so a run shows which layout the match went through.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("cost_volume.cu", "patchmatch.cu", "lk.cu")
+SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu")
+HEADERS = ("cost_terms.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -40,7 +45,8 @@ NVCC_FLAGS = (
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"cost_volume": 0, "pm_refresh": 0, "pm_propagate": 0, "pm_mask_background": 0,
-            "lk_prep": 0, "lk_walk": 0}
+            "build_volumes": 0, "pm_refresh_strip": 0, "pm_propagate_strip": 0,
+            "pm_mask_background_strip": 0, "lk_prep": 0, "lk_walk": 0}
 
 
 def reset_launches() -> None:
@@ -60,7 +66,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD / h.hexdigest()[:16] / "libopt_kernels.so"
@@ -107,6 +113,10 @@ _SIGNATURES = {
     "opt_pm_refresh": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
     "opt_pm_propagate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "opt_pm_mask_background": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "opt_build_volumes": [_P] * 6 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P],
+    "opt_pm_refresh_strip": [_P, _P, _P, _F, _P, _P] + [_I] * 6 + [_P],
+    "opt_pm_propagate_strip": [_P] * 5 + [_I] * 9 + [_P],
+    "opt_pm_mask_background_strip": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
     "opt_lk_prep": [_P] * 9 + [_I] * 8 + [_F, _P],
     "opt_lk_walk": [_P] * 5 + [_I] * 6 + [_F, _P],
 }
@@ -219,6 +229,97 @@ def pm_mask_background(C, disp, improve_factor: float, patch_radius: int) -> tor
             improve_factor, bf16, _stream(C))
     _check(err, "pm_mask_background")
     LAUNCHES["pm_mask_background"] += 1
+    return out
+
+
+def build_volumes(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float, chunks_x: int,
+                  chunks_y: int, dtype: torch.dtype):
+    """(V_row, V_col): the cost volume in both strip layouts
+    (csrc/volume_build.cu); see stereo/cost.py for the layouts."""
+    H, W = iml.shape
+    for name, t in (("iml", iml), ("imr", imr), ("gl", gl), ("gr", gr)):
+        _require(t, name, (torch.float32,), (H, W))
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported volume dtype {dtype}")
+    if chunks_x < 1 or W % chunks_x or chunks_y < 1 or H % chunks_y:
+        raise ValueError(f"{chunks_x} x {chunks_y} strips do not tile a {H}x{W} image")
+    if H * W * max_disp >= 2**31:
+        raise ValueError("volume too large for 32-bit pixel indexing")
+    V_row = torch.empty((W // chunks_x, chunks_x, max_disp, H), dtype=dtype, device=iml.device)
+    V_col = torch.empty((H // chunks_y, chunks_y, max_disp, W), dtype=dtype, device=iml.device)
+    with torch.cuda.device(iml.device):
+        err = library().opt_build_volumes(
+            iml.data_ptr(), imr.data_ptr(), gl.data_ptr(), gr.data_ptr(), V_row.data_ptr(),
+            V_col.data_ptr(), H, W, max_disp, alpha, beta, chunks_x, chunks_y,
+            int(dtype == torch.bfloat16), _stream(iml))
+    _check(err, "build_volumes")
+    LAUNCHES["build_volumes"] += 1
+    return V_row, V_col
+
+
+def _strip_dims(V: torch.Tensor, disp: torch.Tensor, axis: int):
+    """(H, W, D, chunks, bf16) of a strip layout for (H, W) fronts: V_col
+    (chunk, chunks, D, W) for axis 0, V_row (chunk, chunks, D, H) for axis 1."""
+    _require(V, "V", (torch.float32, torch.bfloat16))
+    _require(disp, "disp", (torch.float32,))
+    if V.ndim != 4 or disp.ndim != 2:
+        raise ValueError(f"need a 4-d strip volume and (H, W) fronts, got {tuple(V.shape)} "
+                         f"and {tuple(disp.shape)}")
+    H, W = disp.shape
+    chunk, chunks, D, N = V.shape
+    dim, lanes = (W, H) if axis == 1 else (H, W)
+    if N != lanes or chunk * chunks != dim:
+        raise ValueError(f"strip volume {tuple(V.shape)} does not fit {H}x{W} fronts "
+                         f"along axis {axis}")
+    if V.numel() >= 2**31:
+        raise ValueError("volume too large for 32-bit pixel indexing")
+    return H, W, D, chunks, int(V.dtype == torch.bfloat16)
+
+
+def pm_refresh_strip(V_col, disp, noise, scale: float, patch_radius: int):
+    """pm_refresh over V_col (chunk_y, chunks_y, D, W)."""
+    H, W, D, chunks, bf16 = _strip_dims(V_col, disp, 0)
+    _require(noise, "noise", (torch.float32,), (H, W))
+    disp_out = torch.empty_like(disp)
+    cost_out = torch.empty((H, W), dtype=V_col.dtype, device=V_col.device)
+    with torch.cuda.device(V_col.device):
+        err = library().opt_pm_refresh_strip(
+            V_col.data_ptr(), disp.data_ptr(), noise.data_ptr(), scale, disp_out.data_ptr(),
+            cost_out.data_ptr(), H, W, D, chunks, patch_radius, bf16, _stream(V_col))
+    _check(err, "pm_refresh_strip")
+    LAUNCHES["pm_refresh_strip"] += 1
+    return disp_out, cost_out
+
+
+def pm_propagate_strip(V, disp, cost, direction: int, axis: int, halo: int, patch_radius: int):
+    """pm_propagate over V_row (axis 1, a row pass) or V_col (axis 0); the
+    pass's strips are the layout's."""
+    if axis not in (0, 1) or direction not in (1, -1):
+        raise ValueError(f"bad pass axis={axis} direction={direction}")
+    H, W, D, chunks, bf16 = _strip_dims(V, disp, axis)
+    _require(cost, "cost", (V.dtype,), (H, W))
+    disp_out = torch.empty_like(disp)
+    cost_out = torch.empty_like(cost)
+    with torch.cuda.device(V.device):
+        err = library().opt_pm_propagate_strip(
+            V.data_ptr(), disp.data_ptr(), cost.data_ptr(), disp_out.data_ptr(),
+            cost_out.data_ptr(), H, W, D, axis, int(direction > 0), chunks, halo, patch_radius,
+            bf16, _stream(V))
+    _check(err, "pm_propagate_strip")
+    LAUNCHES["pm_propagate_strip"] += 1
+    return disp_out, cost_out
+
+
+def pm_mask_background_strip(V_col, disp, improve_factor: float, patch_radius: int) -> torch.Tensor:
+    """pm_mask_background over V_col (chunk_y, chunks_y, D, W)."""
+    H, W, D, chunks, bf16 = _strip_dims(V_col, disp, 0)
+    out = torch.empty_like(disp)
+    with torch.cuda.device(V_col.device):
+        err = library().opt_pm_mask_background_strip(
+            V_col.data_ptr(), disp.data_ptr(), out.data_ptr(), H, W, D, chunks, patch_radius,
+            improve_factor, bf16, _stream(V_col))
+    _check(err, "pm_mask_background_strip")
+    LAUNCHES["pm_mask_background_strip"] += 1
     return out
 
 

@@ -4,15 +4,24 @@ Layout: (H, W, D), disparity-minor, as in the reference. On CUDA tensors
 :func:`cost_volume` launches the hand-written kernel in
 ``csrc/cost_volume.cu``; on CPU tensors it runs :func:`cost_volume_plain`,
 which defines the kernel's result bit for bit.
+
+:func:`build_strip_volumes` computes the same cost straight into the two
+strip layouts the strip-volume PatchMatch reads (kernel ``build_volumes``,
+``csrc/volume_build.cu``), for a strip geometry from :func:`strip_geometry`:
+
+    V_row[i, c, d, h] = C[h, c*chunk_x + i, d]   (chunk_x, chunks_x, D, H)
+    V_col[i, c, d, w] = C[c*chunk_y + i, w, d]   (chunk_y, chunks_y, D, W)
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops import cuda
-from ..ops.image import fma_f32, gradient_magnitude
+from ..ops.image import box_filter, fma_f32, gradient_magnitude, sqrt_f32
 
 STENCIL = ((-1, -1), (-1, 1), (0, 0), (1, -1), (1, 1))
 
@@ -76,6 +85,102 @@ def cost_volume(iml, imr, max_disp: int, alpha: float = 0.9, gl=None, gr=None,
         return cuda.cost_volume(iml.contiguous(), imr.contiguous(), gl.contiguous(),
                                 gr.contiguous(), max_disp, a, b, dtype)
     return cost_volume_plain(iml, imr, max_disp, alpha, gl, gr, dtype)
+
+
+def cost_volume_zncc(iml, imr, max_disp: int, patch_size: int = 5) -> torch.Tensor:
+    """(H, W, D) volume with cost = 1 - ZNCC over a patch_size box (the
+    reference CPU PatchMatch's test functor), from box-filtered means,
+    variances and shifted cross-correlations."""
+    iml = iml.float()
+    imr = imr.float()
+    r = patch_size // 2
+    mu_l = box_filter(iml, r)
+    var_l = torch.clamp_min(box_filter(iml * iml, r) - mu_l * mu_l, 1e-8)
+
+    def plane(d: int) -> torch.Tensor:
+        rd = _shift_right_image(imr, d)
+        mu_r = box_filter(rd, r)
+        var_r = torch.clamp_min(box_filter(rd * rd, r) - mu_r * mu_r, 1e-8)
+        cross = box_filter(iml * rd, r) - mu_l * mu_r
+        zncc = cross / sqrt_f32(var_l * var_r)
+        return 1.0 - torch.clamp(zncc, -1.0, 1.0)
+
+    return torch.stack([plane(d) for d in range(max_disp)], dim=-1)
+
+
+def right_cost_volume_from_left(C: torch.Tensor) -> torch.Tensor:
+    """The right image's volume from the left's: C_R[y, x, d] =
+    C_L[y, min(x + d, W - 1), d] (columns past the right edge clamp to the
+    last one)."""
+    H, W, D = C.shape
+    col = torch.arange(W, device=C.device)[:, None] + torch.arange(D, device=C.device)[None, :]
+    return torch.gather(C, 1, col.clamp_max(W - 1).expand(H, W, D))
+
+
+def _effective_chunks(n: int, chunks: int) -> int:
+    """Largest divisor of n that is <= chunks (strips must tile the axis)."""
+    c = min(chunks, n)
+    while n % c != 0:
+        c -= 1
+    return c
+
+
+class StripGeometry(NamedTuple):
+    H: int
+    W: int
+    D: int
+    chunks_x: int  # strips of the row passes (along x)
+    chunk_x: int
+    chunks_y: int  # strips of the column passes (along y)
+    chunk_y: int
+
+
+def strip_geometry(H: int, W: int, D: int, chunks: int, chunks_y: Optional[int]) -> StripGeometry:
+    """Strip counts and sizes of both pass orientations; ``chunks_y=None``
+    means ``chunks`` (so 360 rows with 16 strips give 15 strips of 24)."""
+    cx = _effective_chunks(W, chunks)
+    cy = _effective_chunks(H, chunks if chunks_y is None else chunks_y)
+    return StripGeometry(H, W, D, cx, W // cx, cy, H // cy)
+
+
+def strips_from_volume(C: torch.Tensor, g: StripGeometry):
+    """(V_row, V_col) of an (H, W, D) volume, both contiguous."""
+    H, W, D = C.shape
+    V_row = C.permute(1, 2, 0).reshape(g.chunks_x, g.chunk_x, D, H).transpose(0, 1)
+    V_col = C.permute(0, 2, 1).reshape(g.chunks_y, g.chunk_y, D, W).transpose(0, 1)
+    return V_row.contiguous(), V_col.contiguous()
+
+
+def volume_from_row_strips(V_row: torch.Tensor) -> torch.Tensor:
+    """The (H, W, D) volume held in V_row."""
+    chunk, chunks, D, H = V_row.shape
+    return V_row.transpose(0, 1).reshape(chunks * chunk, D, H).permute(2, 0, 1).contiguous()
+
+
+def volume_from_col_strips(V_col: torch.Tensor) -> torch.Tensor:
+    """The (H, W, D) volume held in V_col: one permute."""
+    chunk, chunks, D, W = V_col.shape
+    return V_col.permute(1, 0, 3, 2).reshape(chunks * chunk, W, D)
+
+
+def build_strip_volumes_plain(iml, imr, gl, gr, D: int, alpha: float, chunks: int,
+                              chunks_y: Optional[int], dtype=torch.float32):
+    """Plain twin of ``build_volumes``: the volume, then both relayouts."""
+    g = strip_geometry(iml.shape[0], iml.shape[1], D, chunks, chunks_y)
+    return strips_from_volume(cost_volume_plain(iml, imr, D, alpha, gl, gr, dtype), g)
+
+
+def build_strip_volumes(iml, imr, gl, gr, D: int, alpha: float, chunks: int,
+                        chunks_y: Optional[int], dtype=torch.float32):
+    """(V_row, V_col): the X-stencil cost volume built straight into both
+    strip layouts (kernel ``build_volumes`` on CUDA tensors)."""
+    iml, imr, gl, gr = (t.float() for t in (iml, imr, gl, gr))
+    if iml.is_cuda:
+        g = strip_geometry(iml.shape[0], iml.shape[1], D, chunks, chunks_y)
+        a, b = _alpha_beta(alpha)
+        return cuda.build_volumes(iml.contiguous(), imr.contiguous(), gl.contiguous(),
+                                  gr.contiguous(), D, a, b, g.chunks_x, g.chunks_y, dtype)
+    return build_strip_volumes_plain(iml, imr, gl, gr, D, alpha, chunks, chunks_y, dtype)
 
 
 def cost_of_disparity(C: torch.Tensor, disp_int: torch.Tensor) -> torch.Tensor:

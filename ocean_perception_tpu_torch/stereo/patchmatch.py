@@ -5,14 +5,17 @@ Reference semantics (patchmatch_gpu.cu, SURVEY.md §A.2): per iteration
 PropagateRow(-1) -> PropagateCol(-1)}, then MaskBackground
 (cost(d) < 0.8*cost(0)), a right disparity map and MaskOcclusions.
 
-The left-side match runs on three hand-written kernels when the volume is on
+Each side's match runs on three hand-written kernels when the volume is on
 a CUDA device (``csrc/patchmatch.cu``): ``pm_refresh`` per iteration,
 ``pm_propagate`` per directional pass and ``pm_mask_background`` once. On
 CPU tensors the plain twins here run instead; they define the kernels'
 results bit for bit.
 
-Only the ``right_wta=True`` path is ported (the one ``perception_step``
-runs); the full two-sided match comes with slice 3.
+The kernels read the volume in one of two layouts. The (H, W, D) volume of
+:func:`~.cost.cost_volume`, or, with ``use_strip_volumes``, the two strip
+layouts of :func:`~.cost.build_strip_volumes` (the ``*_strip`` kernels):
+row passes read ``V_row`` and column passes, refresh and mask read
+``V_col``. Both give the same disparities bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import torch
 
 from ..ops import cuda
 from ..ops.image import dilate, gradient_magnitude
-from .cost import cost_volume, sample_at_disparity, subpixel_refine
+from .cost import (_effective_chunks, build_strip_volumes, cost_volume, cost_volume_zncc,
+                   right_cost_volume_from_left, sample_at_disparity, subpixel_refine,
+                   volume_from_col_strips, volume_from_row_strips)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +51,16 @@ class PatchMatchParams:
     occlusion_hi: float = 1.4
     init_dilate_factor: int = 4
     # True: the right map is a WTA over the left volume (the production
-    # path). False, full PatchMatch on both sides, is not ported yet.
+    # path). False: full PatchMatch on both sides.
     right_wta: bool = False
+    # Matching cost: "l1g" = the reference X-stencil L1+gradient cost;
+    # "zncc" = 1 - ZNCC over zncc_patch (the CPU PatchMatch's test functor).
+    cost: str = "l1g"
+    zncc_patch: int = 5
+    # Build the volume straight into the two strip layouts and match over
+    # them (kernel build_volumes and the *_strip kernels). Needs right_wta,
+    # the l1g cost and iters >= 1; bit-identical to the (H, W, D) path.
+    use_strip_volumes: bool = False
     # Store the volume in bfloat16 (the production setting).
     volume_bf16: bool = False
 
@@ -103,20 +116,29 @@ def _full_cost_map(C: torch.Tensor, disp: torch.Tensor, pr: int) -> torch.Tensor
     return torch.gather(C, -1, idx.unsqueeze(-1)).squeeze(-1)
 
 
-def _refresh(C, disp, noise, scale: float, pr: int):
-    """add_foreground_noise, then _full_cost_map (kernel ``pm_refresh``)."""
-    if C.is_cuda:
-        return cuda.pm_refresh(C, disp, noise, scale, pr)
+def _refresh_plain(C, disp, noise, scale: float, pr: int):
+    """Plain twin of ``pm_refresh``: add_foreground_noise, then _full_cost_map."""
     disp = add_foreground_noise(disp, noise, scale)
     return disp, _full_cost_map(C, disp, pr)
 
 
-def _effective_chunks(n: int, chunks: int) -> int:
-    """Largest divisor of n that is <= chunks (strips must tile the axis)."""
-    c = min(chunks, n)
-    while n % c != 0:
-        c -= 1
-    return c
+def _refresh(C, disp, noise, scale: float, pr: int):
+    """Noise and cost-map refresh (kernel ``pm_refresh``)."""
+    if C.is_cuda:
+        return cuda.pm_refresh(C, disp, noise, scale, pr)
+    return _refresh_plain(C, disp, noise, scale, pr)
+
+
+def _refresh_strip_plain(V_col, disp, noise, scale: float, pr: int):
+    """Plain twin of ``pm_refresh_strip``."""
+    return _refresh_plain(volume_from_col_strips(V_col), disp, noise, scale, pr)
+
+
+def _refresh_strip(V_col, disp, noise, scale: float, pr: int):
+    """The refresh over V_col (kernel ``pm_refresh_strip``)."""
+    if V_col.is_cuda:
+        return cuda.pm_refresh_strip(V_col, disp, noise, scale, pr)
+    return _refresh_strip_plain(V_col, disp, noise, scale, pr)
 
 
 def _chunk_columns(n: int, chunks: int, halo: int, pr: int, device=None):
@@ -188,6 +210,20 @@ def _propagate(C, disp, cost, direction: int, axis: int, p: PatchMatchParams):
     return _propagate_plain(C, disp, cost, direction, axis, p)
 
 
+def _propagate_strip_plain(V, disp, cost, direction: int, axis: int, p: PatchMatchParams):
+    """Plain twin of ``pm_propagate_strip``: V is V_row for a row pass
+    (axis 1) and V_col for a column pass (axis 0)."""
+    C = volume_from_row_strips(V) if axis == 1 else volume_from_col_strips(V)
+    return _propagate_plain(C, disp, cost, direction, axis, p)
+
+
+def _propagate_strip(V, disp, cost, direction: int, axis: int, p: PatchMatchParams):
+    """One directional pass over a strip layout (kernel ``pm_propagate_strip``)."""
+    if V.is_cuda:
+        return cuda.pm_propagate_strip(V, disp, cost, direction, axis, p.halo, p.patch_radius)
+    return _propagate_strip_plain(V, disp, cost, direction, axis, p)
+
+
 def mask_background_plain(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
     """Plain twin of ``pm_mask_background``: zero the disparity unless it
     improves cost by improve_factor vs d=0, and on the 1-px frame. The
@@ -209,6 +245,19 @@ def mask_background(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) ->
     return mask_background_plain(C, disp, p)
 
 
+def mask_background_strip_plain(V_col: torch.Tensor, disp: torch.Tensor,
+                                p: PatchMatchParams) -> torch.Tensor:
+    """Plain twin of ``pm_mask_background_strip``."""
+    return mask_background_plain(volume_from_col_strips(V_col), disp, p)
+
+
+def mask_background_strip(V_col: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
+    """MaskBackground over V_col (kernel ``pm_mask_background_strip``)."""
+    if V_col.is_cuda:
+        return cuda.pm_mask_background_strip(V_col, disp, p.improve_factor, p.patch_radius)
+    return mask_background_strip_plain(V_col, disp, p)
+
+
 def _improve_threshold(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
     """improve_factor * cost(0) in the volume's dtype: JAX rounds the factor
     to bf16 for a bf16 volume and rounds the product back to bf16."""
@@ -227,9 +276,7 @@ def right_wta_from_left(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
     """WTA right disparity from the LEFT volume: C_R(y, x, d) = C_L(y, x+d, d),
     columns past the right edge clamped to the last column. argmin keeps the
     first minimal d, as the reference's strict running min does."""
-    H, W, D = C.shape
-    col = torch.arange(W, device=C.device)[:, None] + torch.arange(D, device=C.device)[None, :]
-    C_r = torch.gather(C, 1, col.clamp_max(W - 1).expand(H, W, D))
+    C_r = right_cost_volume_from_left(C)
     bestd = torch.argmin(C_r, dim=-1).float()
     best = C_r.amin(dim=-1)
     return torch.where(best < _improve_threshold(C, p), bestd, 0.0)
@@ -251,17 +298,36 @@ class PatchMatchResult(NamedTuple):
     left_raw: torch.Tensor  # before occlusion masking
 
 
+PASSES = ((+1, 1), (+1, 0), (-1, 1), (-1, 0))  # R+ C+ R- C-: (direction, axis)
+
+
 def _match_one_side(C, seed, noise, p: PatchMatchParams) -> torch.Tensor:
-    """The whole left-side match: per iteration noise + cost refresh and the
-    R+ C+ R- C- passes, then MaskBackground."""
+    """One side's match: per iteration noise + cost refresh and the R+ C+
+    R- C- passes, then MaskBackground."""
     disp = seed.float().contiguous()
     for it in range(p.iters):
         disp, cost = _refresh(C, disp, noise, p.noise_scale0 / 2.0**it, p.patch_radius)
-        disp, cost = _propagate(C, disp, cost, +1, 1, p)
-        disp, cost = _propagate(C, disp, cost, +1, 0, p)
-        disp, cost = _propagate(C, disp, cost, -1, 1, p)
-        disp, cost = _propagate(C, disp, cost, -1, 0, p)
+        for direction, axis in PASSES:
+            disp, cost = _propagate(C, disp, cost, direction, axis, p)
     return mask_background(C, disp, p)
+
+
+def _match_one_side_strips(V_row, V_col, seed, noise, p: PatchMatchParams) -> torch.Tensor:
+    """:func:`_match_one_side` over the strip layouts: row passes read
+    V_row; refresh, column passes and the mask read V_col."""
+    disp = seed.float().contiguous()
+    for it in range(p.iters):
+        disp, cost = _refresh_strip(V_col, disp, noise, p.noise_scale0 / 2.0**it, p.patch_radius)
+        for direction, axis in PASSES:
+            V = V_row if axis == 1 else V_col
+            disp, cost = _propagate_strip(V, disp, cost, direction, axis, p)
+    return mask_background_strip(V_col, disp, p)
+
+
+def _refine(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
+    """Parabola subpixel refinement of the nonzero disparities."""
+    d_int = torch.round(disp).clamp(0, p.max_disp - 1).long()
+    return torch.where(disp > 0, subpixel_refine(C, d_int), 0.0)
 
 
 def patchmatch_disparity(
@@ -269,28 +335,53 @@ def patchmatch_disparity(
     imr: torch.Tensor,
     params: PatchMatchParams = PatchMatchParams(),
     seed_left: Optional[torch.Tensor] = None,
+    seed_right: Optional[torch.Tensor] = None,
 ) -> PatchMatchResult:
-    """PatchMatch pipeline: left disparity (masked and raw) and right WTA map."""
-    if not params.right_wta:
-        raise NotImplementedError(
-            "right_wta=False (full PatchMatch on both sides) is not ported yet: "
-            "it comes with slice 3 (stereo engines)")
+    """PatchMatch pipeline: left disparity (masked and raw) and right map."""
+    p = params
+    if p.cost not in ("l1g", "zncc"):
+        raise ValueError(f"unknown matching cost {p.cost!r}: 'l1g' or 'zncc'")
+    if p.use_strip_volumes and not (p.right_wta and p.cost == "l1g" and p.iters >= 1):
+        raise ValueError("use_strip_volumes needs right_wta=True, cost='l1g' and iters >= 1, got "
+                         f"right_wta={p.right_wta}, cost={p.cost!r}, iters={p.iters}")
     iml = iml.float()
     imr = imr.float()
-    gl = gradient_magnitude(iml)
-    gr = gradient_magnitude(imr)
-    vdtype = torch.bfloat16 if params.volume_bf16 else torch.float32
-    C_l = cost_volume(iml, imr, params.max_disp, params.alpha, gl, gr, dtype=vdtype)
+    strips = None
+    if p.cost == "zncc":
+        C_l = cost_volume_zncc(iml, imr, p.max_disp, p.zncc_patch)
+    else:
+        gl = gradient_magnitude(iml)
+        gr = gradient_magnitude(imr)
+        vdtype = torch.bfloat16 if p.volume_bf16 else torch.float32
+        if p.use_strip_volumes:
+            strips = build_strip_volumes(iml, imr, gl, gr, p.max_disp, p.alpha, p.chunks,
+                                         p.chunks_y, vdtype)
+            # The seed, right WTA and subpixel consumers read (H, W, D).
+            C_l = volume_from_col_strips(strips[1])
+        else:
+            C_l = cost_volume(iml, imr, p.max_disp, p.alpha, gl, gr, dtype=vdtype)
 
-    noise = unit_noise(iml.shape, params.noise_seed, device=iml.device)
+    noise = unit_noise(iml.shape, p.noise_seed, device=iml.device)
     if seed_left is None:
-        seed_left = sparse_wta_seed(C_l, params)
-    disp_l = _match_one_side(C_l, seed_left, noise, params)
-    disp_r = right_wta_from_left(C_l, params)
+        seed_left = sparse_wta_seed(C_l, p)
+    if p.right_wta:
+        if strips is None:
+            disp_l = _match_one_side(C_l, seed_left, noise, p)
+        else:
+            disp_l = _match_one_side_strips(*strips, seed_left, noise, p)
+        disp_r = right_wta_from_left(C_l, p)
+    else:
+        C_r = right_cost_volume_from_left(C_l)
+        if seed_right is None:
+            seed_right = sparse_wta_seed(C_r, p)
+        disp_l = _match_one_side(C_l, seed_left, noise, p)
+        disp_r = _match_one_side(C_r, seed_right, noise, p)
 
-    if params.subpixel:
-        int_l = torch.round(disp_l).clamp(0, params.max_disp - 1).long()
-        disp_l = torch.where(disp_l > 0, subpixel_refine(C_l, int_l), 0.0)
+    if p.subpixel:
+        disp_l = _refine(C_l, disp_l, p)
+        # The WTA right map only feeds the occlusion ratio check.
+        if not p.right_wta:
+            disp_r = _refine(C_r, disp_r, p)
 
-    left_masked = mask_occlusions(disp_l, disp_r, params)
+    left_masked = mask_occlusions(disp_l, disp_r, p)
     return PatchMatchResult(left=left_masked, right=disp_r, left_raw=disp_l)

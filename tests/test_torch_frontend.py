@@ -93,7 +93,8 @@ def runs():
     cuda.reset_launches()
     for left, right in frames:
         out, prev = tmodel.full_frontend_step(state, graph, prev, torch.from_numpy(left),
-                                              torch.from_numpy(right), trig, tcfg, tmp)
+                                              torch.from_numpy(right), trig, tcfg, tmp,
+                                              device="cpu")
         state, graph = out.tracker_state, out.graph
         ours.append(out)
     return dict(ref=ref, ours=ours, rig=trig, launches=dict(cuda.LAUNCHES))
@@ -166,11 +167,12 @@ def test_mesher_scale_runs_the_mesher_half_downscaled():
     for _ in range(2):
         prev = to_grayscale(left)[::2, ::2] if prev is None else prev
         out, prev = tmodel.full_frontend_step(state, graph, prev, left, right, rig, cfg, mp,
-                                              mesher_scale=2)
+                                              mesher_scale=2, device="cpu")
         state, graph = out.tracker_state, out.graph
     assert prev.shape == (H // 2, W // 2) and out.perception.disparity.shape == (H, W)
     assert out.mesher.foreground.shape == (H // 2, W // 2)
     d = out.mesher.disparities[out.mesher.alive]
     assert len(d) >= 6 and float((d - 4.0).abs().median()) < 0.5
     with pytest.raises(ValueError, match="power of two"):
-        tmodel.full_frontend_step(state, graph, prev, left, right, rig, cfg, mp, mesher_scale=3)
+        tmodel.full_frontend_step(state, graph, prev, left, right, rig, cfg, mp, mesher_scale=3,
+                                  device="cpu")

@@ -43,6 +43,17 @@ CASES = {
     # The production operating point's shape of work, small: /2 internally.
     "half_res": lambda: (*_scene(128, 192, 8), graft._rig(128, 192),
                          jmodel.PerceptionConfig(engine="patchmatch", max_disp=32, internal_scale=2)),
+    # The strip-volume build and match (JAX: the in-kernel Pallas build).
+    "strip_volumes": lambda: (*_scene(48, 64, 5), graft._rig(48, 64),
+                              jmodel.PerceptionConfig(engine="patchmatch", max_disp=16,
+                                                      internal_scale=1, chunks=4, scan_unroll=1,
+                                                      use_pallas_build=True, run_enhance=False)),
+    "sgm": lambda: (*_scene(128, 192, 8), graft._rig(128, 192),
+                    jmodel.PerceptionConfig(engine="sgm", max_disp=32, internal_scale=2,
+                                            scan_unroll=1, run_enhance=False)),
+    "wta": lambda: (*_scene(128, 192, 8), graft._rig(128, 192),
+                    jmodel.PerceptionConfig(engine="wta", max_disp=32, internal_scale=2,
+                                            run_enhance=False)),
 }
 
 
@@ -52,7 +63,7 @@ def case(request):
     ref = jax.jit(lambda a, b: jmodel.perception_step(a, b, rig, cfg))(left, right)
     ours = tmodel.perception_step(torch.from_numpy(left), torch.from_numpy(right),
                                   convert.stereo_camera_from_jax(rig),
-                                  convert.perception_config_from_jax(cfg))
+                                  convert.perception_config_from_jax(cfg), device="cpu")
     return dict(ref=[np.asarray(x) for x in ref], ours=[x.numpy() for x in ours], H=left.shape[0],
                 W=left.shape[1])
 
@@ -87,17 +98,32 @@ def test_convert_and_rig():
 
     cfg = convert.perception_config_from_jax(jmodel.PerceptionConfig(max_disp=64, chunks=8))
     assert (cfg.max_disp, cfg.internal_scale, cfg.chunks, cfg.run_enhance) == (64, 2, 8, True)
-    assert cfg.enhance == tmodel.EnhanceParams()
+    assert cfg.enhance == tmodel.EnhanceParams() and not cfg.use_strip_volumes
+    for build in (True, False):
+        cfg = convert.perception_config_from_jax(jmodel.PerceptionConfig(engine="sgm",
+                                                                         use_pallas_build=build))
+        assert (cfg.engine, cfg.use_strip_volumes) == ("sgm", build)
 
 
 def test_unported_config_raises():
+    """What perception_step refuses: an unknown engine, a scale that is not
+    a power of two, the strip volumes outside their mode, and (without a
+    GPU) a run on the card that the caller did not move to the CPU."""
     left, right = graft._tiny_inputs()
     rig = convert.stereo_camera_from_jax(graft._rig())
     l, r = torch.from_numpy(np.array(left)), torch.from_numpy(np.array(right))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(engine="sgm"))
+    with pytest.raises(ValueError, match="engine"):
+        tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(engine="census"), device="cpu")
     with pytest.raises(ValueError):
-        tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(internal_scale=3))
-    out = tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(max_disp=32, internal_scale=1,
-                                                                     run_enhance=False))
+        tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(internal_scale=3), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(max_disp=32, internal_scale=1))
+    out = tmodel.perception_step(np.array(left), np.array(right), rig,
+                                 tmodel.PerceptionConfig(max_disp=32, internal_scale=1,
+                                                         run_enhance=False), device="cpu")
     assert torch.equal(out.enhanced_left, l)
+    for engine in ("sgm", "wta"):
+        out = tmodel.perception_step(l, r, rig, tmodel.PerceptionConfig(
+            engine=engine, max_disp=32, internal_scale=1, run_enhance=False), device="cpu")
+        assert out.disparity.shape == l.shape[:2] and torch.isfinite(out.depth).all()

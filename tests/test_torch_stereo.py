@@ -177,12 +177,18 @@ def test_effective_chunks_and_layout():
 
 
 def test_unported_paths_raise():
+    """What the port still refuses: an unknown engine or cost, and the
+    strip-volume match outside right_wta + l1g + iters >= 1 (where JAX
+    silently ignores its build flag)."""
     l = torch.zeros(16, 24)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tpm.patchmatch_disparity(l, l, tpm.PatchMatchParams(max_disp=8, right_wta=False))
+    with pytest.raises(ValueError):
+        tapi.estimate_disparity(l, l, engine="census")
+    with pytest.raises(ValueError, match="use_strip_volumes"):
+        tpm.patchmatch_disparity(l, l, tpm.PatchMatchParams(max_disp=8, right_wta=False,
+                                                             use_strip_volumes=True))
     for engine in ("sgm", "wta"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tapi.estimate_disparity(l, l, engine=engine)
+        out = tapi.estimate_disparity(l + 0.5, l + 0.5, engine=engine, max_disp=8)
+        assert out.left.shape == (16, 24)
     out = tapi.estimate_disparity(l + 0.5, l + 0.5, engine="patchmatch", patchmatch_params=tpm.PatchMatchParams(
         max_disp=8, chunks=2, right_wta=True))
     assert out.left.shape == (16, 24)
