@@ -8,14 +8,15 @@ disparity and motion, in phases:
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the hand-written kernels from ``csrc/``;
 3. each PatchMatch kernel against its plain PyTorch twin on the card, at the
-   shapes the 720p path gives it (bit-identical), with both times;
+   shapes the 720p path gives it (bit-identical; each pass on seeded and on
+   adversarial fronts, in bf16 and float32), with its times (below);
 4. ``perception_step`` end to end: 8 frames, checking the kernels' launch
    counts, finite outputs and the disparity against the scene's truth;
-   then the device time of each stage;
+   then the call time of each stage;
 5. the same perception frame through the port on the CPU, against the card;
 6. ``build_volumes`` (bf16 and float32) and each strip-layout PatchMatch
-   kernel against their twins at the 720p shapes (bit-identical), with
-   both times, then the whole strip-volume match;
+   kernel against their twins at the 720p shapes (bit-identical, the passes
+   as in phase 3), with their times, then the whole strip-volume match;
 7. ``perception_step`` with ``use_strip_volumes=True``: 8 frames, launch
    counts, and a disparity equal bit for bit to phase 4's on the same frame;
 8. the other stereo configurations at 720p: the SGM and WTA engines of
@@ -25,7 +26,7 @@ disparity and motion, in phases:
    against the CPU;
 9. the two LK kernels against their twins at the 720p shapes of
    ``full_frontend_step`` (K=200 slots, a 4-frame ring, 4 levels, forward
-   and backward; bit-identical), with both times;
+   and backward; bit-identical), with their times;
 10. ``full_frontend_step`` end to end (tracker with the pyramid ring, stripe
    matcher, landmark graph) over 8 frames of a sequence that moves -2 px a
    frame with an 8 px stereo disparity: launch counts, finite outputs, the
@@ -33,13 +34,21 @@ disparity and motion, in phases:
    the tracker's share, host syncs per frame and the stage times;
 11. the same frontend frame through the port on the CPU, against the card.
 
+A kernel's times, at each call shape of its path: its device time two ways,
+``torch.profiler`` over 20 calls (``profiler_ms``; "not measured" where the
+profiler recorded no device time) and CUDA events around the replay of a
+CUDA graph that captured 20 calls (``graph_ms``); ``call_ms``, CUDA events
+around one Python call, the host's enqueue included; and ``plain_ms``, the
+plain twin's call time. ``device_ms`` (also ``ms``) is the profiler's time
+where it measured, else the graph replay's, and ``device_method`` says which.
+
 Any failure raises and exits nonzero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit; the one before that lists each kernel with its launches on its
 own path (launch counts are zeroed just before each path is driven and read
-just after), its error against the plain twin, its time and its twin's, and
-its bound: the larger of the bytes it must move over 3.35 TB/s and the
-operations it must do over 67 TFLOP/s (float32), from this run's shapes.
+just after), its error against the plain twin, its times, and its bound:
+the larger of the bytes it must move over 3.35 TB/s and the operations it
+must do over 67 TFLOP/s (float32), from this run's shapes.
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
@@ -48,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -56,6 +66,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
 from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
@@ -129,8 +140,10 @@ def make_inputs(canvas: np.ndarray, i: int = 0) -> tuple[np.ndarray, np.ndarray]
     return left_rgb, right_rgb
 
 
-def gpu_ms(fn, n: int = N_TIMED) -> float:
-    """Median device time of fn() in ms over n runs, after two warm-ups."""
+def call_ms(fn, n: int = N_TIMED) -> float:
+    """Median time of one call of fn() in ms over n runs, after two warm-ups:
+    CUDA events recorded on an idle stream before and after the call, so the
+    host's enqueue (the wrapper's checks, allocations and launches) is in it."""
     for _ in range(2):
         fn()
     times = []
@@ -142,6 +155,121 @@ def gpu_ms(fn, n: int = N_TIMED) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_refresh|pm_propagate|pm_mask_background"
+                       r"|lk_prep|lk_walk)(?:_rows|_cols)?_kernel")
+
+
+def launch_name(kernel: str) -> str | None:
+    """The launch name of a kernel as the profiler names it, demangled or
+    not: ``pm_propagate_rows_kernel<float, (anonymous namespace)::RowStrips<float>>``
+    is ``pm_propagate_strip``, its Hwd form ``pm_propagate``; None for a
+    kernel that no wrapper of ``ops/cuda.py`` launches."""
+    m = KERNEL_RE.search(kernel)
+    if m is None:
+        return None
+    strip = m.group(1).startswith("pm_") and re.search(r"(Row|Col)Strips", kernel)
+    return m.group(1) + ("_strip" if strip else "")
+
+
+def profiler_ms(launch: str, fn, n: int = N_TIMED) -> float | None:
+    """Device time of one call's kernel in ms: ``torch.profiler`` over n
+    calls of fn(), the kernels' device time in ``key_averages()`` over their
+    count (the profiler may miss a launch of the n). None where it recorded
+    no device time. Fails if the window ran a kernel of another launch name
+    or more kernels than calls."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if launch_name(e.key) != launch:
+            raise AssertionError(f"{launch}: the profiled window also ran {e.key!r}")
+        total_us += e.device_time_total
+        count += e.count
+    if count == 0 or total_us <= 0:
+        return None
+    if count > n:
+        raise AssertionError(f"{launch}: {count} kernels profiled over {n} calls")
+    if count < n:
+        print(f"[profiler] {launch}: {count} of {n} launches recorded")
+    return total_us / 1e3 / count
+
+
+def graph_ms(fn, n: int = N_TIMED, replays: int = 5) -> float:
+    """Device time of one call of fn() in ms: CUDA events around the replay
+    of a CUDA graph that captured n calls, so the host is out of it; the
+    median over replays, over n."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def measure(launch: str, kernel, plain, plain_n: int = N_TIMED) -> dict:
+    """One call shape of a kernel: its device time both ways, the time of
+    one Python call, and its plain twin's call time."""
+    return dict(profiler_ms=profiler_ms(launch, kernel), graph_ms=graph_ms(kernel),
+                call_ms=call_ms(kernel), plain_ms=call_ms(plain, plain_n))
+
+
+def summarize(calls: list) -> dict:
+    """A kernel's timing columns, each the mean over its call shapes.
+    ``device_ms`` (and ``ms``) is the profiler's where it measured every
+    call, else the graph replay's; ``device_method`` says which."""
+    def mean(key):
+        return statistics.mean(c[key] for c in calls)
+
+    profiled = all(c["profiler_ms"] is not None for c in calls)
+    device = mean("profiler_ms") if profiled else mean("graph_ms")
+    return dict(ms=device, device_ms=device,
+                device_method="profiler" if profiled else "graph replay",
+                profiler_ms=mean("profiler_ms") if profiled else "not measured",
+                graph_ms=mean("graph_ms"), call_ms=mean("call_ms"), plain_ms=mean("plain_ms"))
+
+
+def fmt_ms(v) -> str:
+    """A time in ms, or "not measured" where a method gave none."""
+    return "not measured" if v is None or isinstance(v, str) else f"{v:.5f} ms"
+
+
+def times_line(t: dict) -> str:
+    return (f"device {fmt_ms(t['profiler_ms'])} (profiler), {t['graph_ms']:.5f} ms (graph "
+            f"replay); call {t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms")
+
+
+def adversarial_fronts(vol: torch.Tensor, shape, seed: int = 5):
+    """Fronts on which a pass's compare flips often: disparities uniform in
+    [0, D), half of them on the half-integer grid (rounding ties), and costs
+    drawn from the volume's own entries at random, in its dtype."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0, vol.shape[2], shape).astype(np.float32)
+    half = rng.random(shape) < 0.5
+    d[half] = np.floor(d[half] * 2) / 2
+    pick = torch.from_numpy(rng.integers(0, vol.numel(), int(np.prod(shape)))).to(vol.device)
+    return torch.from_numpy(d).to(vol.device), vol.reshape(-1)[pick].reshape(shape).contiguous()
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -209,8 +337,28 @@ def phase_build() -> None:
     print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
 
 
+def check_passes(tag: str, kernel, plain, fronts: dict) -> float:
+    """kernel(disp, cost, direction, axis) against plain(...) on every pass
+    R+ C+ R- C- and every front of fronts ({name: (disp, cost)}):
+    bit-identical. Returns the max |diff| (0)."""
+    err = 0.0
+    for name, (disp, cost) in fronts.items():
+        for direction, axis in PASSES:
+            (dk, ck) = kernel(disp, cost, direction, axis)
+            (dp, cp) = plain(disp, cost, direction, axis)
+            t = f"{tag}, {name} fronts, dir={direction:+d} axis={axis}"
+            require_equal(t + " disp", dk, dp)
+            require_equal(t + " cost", ck, cp)
+            err = max(err, max_abs(dk, dp), max_abs(ck, cp))
+    print(f"[passes] {tag}: bit-identical to the plain twin on the {' and '.join(fronts)} "
+          f"fronts, 4 passes each")
+    return err
+
+
 def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
-    """Each kernel against its plain twin on identical inputs at 720p shapes."""
+    """Each kernel against its plain twin on identical inputs at 720p shapes,
+    then its device time (profiler and graph replay), its call time and its
+    twin's."""
     dev = left_rgb.device
     iml = pyr_down(to_grayscale(left_rgb))
     imr = pyr_down(to_grayscale(right_rgb))
@@ -223,11 +371,15 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
     C = cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16)
     C_plain = cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16)
     require_equal("cost_volume", C, C_plain)
+    C32 = cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.float32)
+    require_equal("cost_volume float32", C32,
+                  cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.float32))
     Hs, Ws = iml.shape
     rows["cost_volume"] = dict(
         max_abs_err=max_abs(C, C_plain),
-        ms=gpu_ms(lambda: cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16)),
-        plain_ms=gpu_ms(lambda: cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16)),
+        **summarize([measure(
+            "cost_volume", lambda: cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16),
+            lambda: cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16))]),
         **bound(4 * Hs * Ws * 4 + C.numel() * C.element_size()),
     )
     bounds = pm_bounds(Hs, Ws, D, C.element_size(), p)
@@ -242,32 +394,32 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
     require_equal("pm_refresh cost", c_k, c_p)
     rows["pm_refresh"] = dict(
         max_abs_err=max(max_abs(d_k, d_p), max_abs(c_k, c_p)),
-        ms=gpu_ms(lambda: cuda.pm_refresh(C, seed, noise, scale, pr)),
-        plain_ms=gpu_ms(lambda: pm._refresh_plain(C, seed, noise, scale, pr)),
+        **summarize([measure("pm_refresh", lambda: cuda.pm_refresh(C, seed, noise, scale, pr),
+                             lambda: pm._refresh_plain(C, seed, noise, scale, pr))]),
         **bounds["refresh"],
     )
 
-    err, ms, plain_ms = 0.0, [], []
+    def strips(axis):
+        return pm._effective_chunks(Ws if axis == 1 else Hs, p.chunks)
+
+    err = 0.0
+    for vol in (C, C32):
+        seeded = pm._refresh_plain(vol, seed, noise, scale, pr)
+        err = max(err, check_passes(
+            f"pm_propagate {vol.dtype}",
+            lambda d, c, direction, axis: cuda.pm_propagate(vol, d, c, direction, axis,
+                                                            strips(axis), p.halo, pr),
+            lambda d, c, direction, axis: pm._propagate_plain(vol, d, c, direction, axis, p),
+            {"seeded": seeded, "adversarial": adversarial_fronts(vol, (Hs, Ws))}))
+    calls = []
     for direction, axis in PASSES:
-        dim = W // SCALE if axis == 1 else H // SCALE
-        chunks = pm._effective_chunks(dim, p.chunks)
-
-        def kernel():
-            return cuda.pm_propagate(C, d_p, c_p, direction, axis, chunks, p.halo, pr)
-
-        def plain():
-            return pm._propagate_plain(C, d_p, c_p, direction, axis, p)
-
-        (dk, ck), (dp, cp) = kernel(), plain()
-        tag = f"pm_propagate dir={direction:+d} axis={axis}"
-        require_equal(tag + " disp", dk, dp)
-        require_equal(tag + " cost", ck, cp)
-        err = max(err, max_abs(dk, dp), max_abs(ck, cp))
-        ms.append(gpu_ms(kernel))
-        plain_ms.append(gpu_ms(plain))
-        print(f"[kernels] {tag}: {ms[-1]:.4f} ms vs plain {plain_ms[-1]:.4f} ms, {chunks} strips")
-    rows["pm_propagate"] = dict(max_abs_err=err, ms=statistics.mean(ms), plain_ms=statistics.mean(plain_ms),
-                                **bounds["propagate"])
+        calls.append(measure(
+            "pm_propagate",
+            lambda: cuda.pm_propagate(C, d_p, c_p, direction, axis, strips(axis), p.halo, pr),
+            lambda: pm._propagate_plain(C, d_p, c_p, direction, axis, p)))
+        print(f"[kernels] pm_propagate dir={direction:+d} axis={axis}: {times_line(calls[-1])}, "
+              f"{strips(axis)} strips")
+    rows["pm_propagate"] = dict(max_abs_err=err, **summarize(calls), **bounds["propagate"])
 
     final = pm._propagate_plain(C, d_p, c_p, -1, 0, p)[0]
     m_k = cuda.pm_mask_background(C, final, p.improve_factor, pr)
@@ -275,8 +427,9 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
     require_equal("pm_mask_background", m_k, m_p)
     rows["pm_mask_background"] = dict(
         max_abs_err=max_abs(m_k, m_p),
-        ms=gpu_ms(lambda: cuda.pm_mask_background(C, final, p.improve_factor, pr)),
-        plain_ms=gpu_ms(lambda: pm.mask_background_plain(C, final, p)),
+        **summarize([measure("pm_mask_background",
+                             lambda: cuda.pm_mask_background(C, final, p.improve_factor, pr),
+                             lambda: pm.mask_background_plain(C, final, p))]),
         **bounds["mask"],
     )
 
@@ -292,13 +445,15 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
 
     full_k, full_p = pm._match_one_side(C, seed, noise, p), match_plain()
     require_equal("match_one_side", full_k, full_p)
-    k_ms = gpu_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    p_ms = gpu_ms(match_plain)
-    print(f"[kernels] match_one_side (3 refresh + 12 passes + mask): {k_ms:.4f} ms "
-          f"vs plain {p_ms:.4f} ms, valid {(full_k > 0).float().mean().item():.3f}")
+    k_ms = call_ms(lambda: pm._match_one_side(C, seed, noise, p))
+    g_ms = graph_ms(lambda: pm._match_one_side(C, seed, noise, p))
+    p_ms = call_ms(match_plain)
+    print(f"[kernels] match_one_side (3 refresh + 12 passes + mask): call {k_ms:.4f} ms, "
+          f"device {g_ms:.4f} ms (graph replay), plain {p_ms:.4f} ms, "
+          f"valid {(full_k > 0).float().mean().item():.3f}")
     for name, row in rows.items():
-        print(f"[kernels] {name}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms, "
-              f"max |diff| {row['max_abs_err']}")
+        print(f"[kernels] {name}: {times_line(row)}; bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}), max |diff| {row['max_abs_err']}")
     return rows
 
 
@@ -354,23 +509,24 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
 
 
 def phase_stage_times(left_rgb, right_rgb, rig, config) -> None:
-    """Device time of each stage of perception_step, one frame at a time."""
+    """Call time of each stage of perception_step, one frame at a time (the
+    host's enqueue included: most stages are bound by it)."""
     from ocean_perception_tpu_torch.imaging.enhance import enhance_underwater
     from ocean_perception_tpu_torch.stereo.cost import cost_volume, subpixel_refine
 
     p = pm.PatchMatchParams(max_disp=MAX_DISP // SCALE, right_wta=True, volume_bf16=True)
     st = {}
-    st["gray+pyr_down"] = gpu_ms(lambda: (pyr_down(to_grayscale(left_rgb)), pyr_down(to_grayscale(right_rgb))))
+    st["gray+pyr_down"] = call_ms(lambda: (pyr_down(to_grayscale(left_rgb)), pyr_down(to_grayscale(right_rgb))))
     iml, imr = pyr_down(to_grayscale(left_rgb)), pyr_down(to_grayscale(right_rgb))
-    st["sobel"] = gpu_ms(lambda: (gradient_magnitude(iml), gradient_magnitude(imr)))
+    st["sobel"] = call_ms(lambda: (gradient_magnitude(iml), gradient_magnitude(imr)))
     gl, gr = gradient_magnitude(iml), gradient_magnitude(imr)
-    st["cost_volume"] = gpu_ms(lambda: cost_volume(iml, imr, p.max_disp, p.alpha, gl, gr, torch.bfloat16))
+    st["cost_volume"] = call_ms(lambda: cost_volume(iml, imr, p.max_disp, p.alpha, gl, gr, torch.bfloat16))
     C = cost_volume(iml, imr, p.max_disp, p.alpha, gl, gr, torch.bfloat16)
-    st["noise"] = gpu_ms(lambda: pm.unit_noise(iml.shape, p.noise_seed, device=iml.device))
+    st["noise"] = call_ms(lambda: pm.unit_noise(iml.shape, p.noise_seed, device=iml.device))
     noise = pm.unit_noise(iml.shape, p.noise_seed, device=iml.device)
-    st["sparse_wta_seed"] = gpu_ms(lambda: pm.sparse_wta_seed(C, p))
+    st["sparse_wta_seed"] = call_ms(lambda: pm.sparse_wta_seed(C, p))
     seed = pm.sparse_wta_seed(C, p)
-    st["patchmatch"] = gpu_ms(lambda: pm._match_one_side(C, seed, noise, p))
+    st["patchmatch"] = call_ms(lambda: pm._match_one_side(C, seed, noise, p))
     disp_l = pm._match_one_side(C, seed, noise, p)
 
     def post():
@@ -382,9 +538,9 @@ def phase_stage_times(left_rgb, right_rgb, rig, config) -> None:
         z = rig.disp_to_depth(d)
         return torch.where(torch.isfinite(z) & (z <= config.max_depth), z, 0.0)
 
-    st["right_wta+subpixel+occlusion+depth"] = gpu_ms(post)
+    st["right_wta+subpixel+occlusion+depth"] = call_ms(post)
     depth = post()
-    st["enhance"] = gpu_ms(lambda: enhance_underwater(left_rgb, depth, config.enhance), 10)
+    st["enhance"] = call_ms(lambda: enhance_underwater(left_rgb, depth, config.enhance), 10)
     total = sum(st.values())
     for k, v in st.items():
         print(f"[stages] {k}: {v:.4f} ms ({100.0 * v / total:.1f}%)")
@@ -419,6 +575,7 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict
     print(f"[strips] V_row {(g.chunk_x, g.chunks_x, D, Hs)}, V_col {(g.chunk_y, g.chunks_y, D, Ws)}")
     rows = {}
 
+    vols = {}
     for dtype in (torch.float32, torch.bfloat16):  # bf16, the production dtype, last
         def kernel():
             return cuda.build_volumes(iml, imr, gl, gr, D, a, b, g.chunks_x, g.chunks_y, dtype)
@@ -430,12 +587,12 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict
         (vr, vc), (vr_p, vc_p) = kernel(), plain()
         require_equal(f"build_volumes V_row {dtype}", vr, vr_p)
         require_equal(f"build_volumes V_col {dtype}", vc, vc_p)
+        vols[dtype] = vr, vc
         rows["build_volumes"] = dict(
-            max_abs_err=max(max_abs(vr, vr_p), max_abs(vc, vc_p)), ms=gpu_ms(kernel),
-            plain_ms=gpu_ms(plain),
+            max_abs_err=max(max_abs(vr, vr_p), max_abs(vc, vc_p)),
+            **summarize([measure("build_volumes", kernel, plain)]),
             **bound(4 * Hs * Ws * 4 + (vr.numel() + vc.numel()) * vr.element_size()))
-        print(f"[strips] build_volumes {dtype}: {rows['build_volumes']['ms']:.4f} ms vs plain "
-              f"{rows['build_volumes']['plain_ms']:.4f} ms, bound "
+        print(f"[strips] build_volumes {dtype}: {times_line(rows['build_volumes'])}; bound "
               f"{rows['build_volumes']['bound_ms']:.4f} ms")
     C = sc.volume_from_col_strips(vc)
     seed = pm.sparse_wta_seed(C, p)
@@ -449,30 +606,34 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict
     require_equal("pm_refresh_strip cost", c_k, c_p)
     rows["pm_refresh_strip"] = dict(
         max_abs_err=max(max_abs(d_k, d_p), max_abs(c_k, c_p)),
-        ms=gpu_ms(lambda: cuda.pm_refresh_strip(vc, seed, noise, scale, pr)),
-        plain_ms=gpu_ms(lambda: pm._refresh_strip_plain(vc, seed, noise, scale, pr)),
+        **summarize([measure("pm_refresh_strip",
+                             lambda: cuda.pm_refresh_strip(vc, seed, noise, scale, pr),
+                             lambda: pm._refresh_strip_plain(vc, seed, noise, scale, pr))]),
         **bounds["refresh"])
 
-    err, ms, plain_ms = 0.0, [], []
+    err = 0.0
+    for dtype, (v_row, v_col) in vols.items():
+        def layout(axis, v_row=v_row, v_col=v_col):
+            return v_row if axis == 1 else v_col
+
+        err = max(err, check_passes(
+            f"pm_propagate_strip {dtype}",
+            lambda d, c, direction, axis: cuda.pm_propagate_strip(layout(axis), d, c, direction,
+                                                                  axis, p.halo, pr),
+            lambda d, c, direction, axis: pm._propagate_strip_plain(layout(axis), d, c,
+                                                                    direction, axis, p),
+            {"seeded": pm._refresh_strip_plain(v_col, seed, noise, scale, pr),
+             "adversarial": adversarial_fronts(v_col, (Hs, Ws))}))
+    calls = []
     for direction, axis in PASSES:
         V = vr if axis == 1 else vc
-
-        def kernel():
-            return cuda.pm_propagate_strip(V, d_p, c_p, direction, axis, p.halo, pr)
-
-        def plain():
-            return pm._propagate_strip_plain(V, d_p, c_p, direction, axis, p)
-
-        (dk, ck), (dp, cp) = kernel(), plain()
-        tag = f"pm_propagate_strip dir={direction:+d} axis={axis}"
-        require_equal(tag + " disp", dk, dp)
-        require_equal(tag + " cost", ck, cp)
-        err = max(err, max_abs(dk, dp), max_abs(ck, cp))
-        ms.append(gpu_ms(kernel))
-        plain_ms.append(gpu_ms(plain))
-        print(f"[strips] {tag}: {ms[-1]:.4f} ms vs plain {plain_ms[-1]:.4f} ms, {V.shape[1]} strips")
-    rows["pm_propagate_strip"] = dict(max_abs_err=err, ms=statistics.mean(ms),
-                                      plain_ms=statistics.mean(plain_ms), **bounds["propagate"])
+        calls.append(measure(
+            "pm_propagate_strip",
+            lambda: cuda.pm_propagate_strip(V, d_p, c_p, direction, axis, p.halo, pr),
+            lambda: pm._propagate_strip_plain(V, d_p, c_p, direction, axis, p)))
+        print(f"[strips] pm_propagate_strip dir={direction:+d} axis={axis}: "
+              f"{times_line(calls[-1])}, {V.shape[1]} strips")
+    rows["pm_propagate_strip"] = dict(max_abs_err=err, **summarize(calls), **bounds["propagate"])
 
     final = pm._propagate_strip_plain(vc, d_p, c_p, -1, 0, p)[0]
     m_k = cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr)
@@ -480,8 +641,9 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict
     require_equal("pm_mask_background_strip", m_k, m_p)
     rows["pm_mask_background_strip"] = dict(
         max_abs_err=max_abs(m_k, m_p),
-        ms=gpu_ms(lambda: cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr)),
-        plain_ms=gpu_ms(lambda: pm.mask_background_strip_plain(vc, final, p)),
+        **summarize([measure("pm_mask_background_strip",
+                             lambda: cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr),
+                             lambda: pm.mask_background_strip_plain(vc, final, p))]),
         **bounds["mask"])
 
     # The whole strip-volume match (K3' over K4's layouts): kernels vs twins.
@@ -498,22 +660,25 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict
     require_equal("match_one_side_strips", full_k, full_p)
     require_equal("match_one_side_strips vs the (H, W, D) match", full_k,
                   pm._match_one_side(C, seed, noise, p))
-    k_ms = gpu_ms(lambda: pm._match_one_side_strips(vr, vc, seed, noise, p))
-    hwd_ms = gpu_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    p_ms = gpu_ms(match_plain, 5)
-    print(f"[strips] match_one_side_strips (3 refresh + 12 passes + mask): {k_ms:.4f} ms vs "
-          f"(H, W, D) match {hwd_ms:.4f} ms vs plain {p_ms:.4f} ms, "
+    k_ms = call_ms(lambda: pm._match_one_side_strips(vr, vc, seed, noise, p))
+    hwd_ms = call_ms(lambda: pm._match_one_side(C, seed, noise, p))
+    k_dev = graph_ms(lambda: pm._match_one_side_strips(vr, vc, seed, noise, p))
+    hwd_dev = graph_ms(lambda: pm._match_one_side(C, seed, noise, p))
+    p_ms = call_ms(match_plain, 5)
+    print(f"[strips] match_one_side_strips (3 refresh + 12 passes + mask): call {k_ms:.4f} ms "
+          f"vs (H, W, D) match {hwd_ms:.4f} ms; device (graph replay) {k_dev:.4f} vs "
+          f"{hwd_dev:.4f} ms; plain {p_ms:.4f} ms, "
           f"valid {(full_k > 0).float().mean().item():.3f}")
     # The dense half on each layout, in turns (H, W, D), strips, strips,
     # (H, W, D): the volume build, seed, match, right WTA and subpixel.
     p_hwd = dataclasses.replace(p, use_strip_volumes=False)
-    turns = [gpu_ms(lambda q=q: pm.patchmatch_disparity(iml, imr, q), 10)
+    turns = [call_ms(lambda q=q: pm.patchmatch_disparity(iml, imr, q), 10)
              for q in (p_hwd, p, p, p_hwd)]
     print(f"[strips] patchmatch_disparity at {Hs}x{Ws}, in turns: (H, W, D) {turns[0]:.4f}, "
           f"strips {turns[1]:.4f}, strips {turns[2]:.4f}, (H, W, D) {turns[3]:.4f} ms")
     for name, row in rows.items():
-        print(f"[strips] {name}: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}), max |diff| {row['max_abs_err']}")
+        print(f"[strips] {name}: {times_line(row)}; bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}), max |diff| {row['max_abs_err']}")
     return rows
 
 
@@ -594,7 +759,7 @@ def lk_bounds(calls: list) -> dict:
     written; at most max_iters steps of 2*A*A multiply-adds a point, which
     never outweighs its bytes, so it is bytes-bound whatever the data."""
     prep, walk = [], []
-    for name, args, kwargs in calls:
+    for name, args, kwargs, _ in calls:
         if name == "lk_prep":
             K, win, slack = args[2].shape[0], kwargs["win"], kwargs["slack"]
             ST, ws, P = win + 3, win + 2 * (slack + 1), win + 2
@@ -613,11 +778,15 @@ def lk_bounds(calls: list) -> dict:
 
 
 def record_lk_calls(fn) -> list:
-    """Run fn() and return the (name, args, kwargs) of every lk_prep and
-    lk_walk call it made, in order: the exact inputs the main path gives the
-    two kernels."""
-    calls = []
-    orig = {name: getattr(lk, name) for name in ("lk_prep", "lk_walk")}
+    """Run fn() and return, for every lk_prep and lk_walk call it made in
+    order, (name, args, kwargs, launch): the dispatcher's arguments, the exact
+    inputs the main path gives the two kernels, for the plain twin; and the
+    arguments the dispatcher handed its kernel wrapper, to time the kernel
+    alone."""
+    names = ("lk_prep", "lk_walk")
+    calls, launches = [], []
+    orig = {name: getattr(lk, name) for name in names}
+    wrappers = {name: getattr(cuda, name) for name in names}
 
     def spy(name):
         def call(*args, **kwargs):
@@ -625,45 +794,52 @@ def record_lk_calls(fn) -> list:
             return orig[name](*args, **kwargs)
         return call
 
+    def spy_wrapper(name):
+        def call(*args):
+            launches.append(args)
+            return wrappers[name](*args)
+        return call
+
     try:
-        for name in orig:
+        for name in names:
             setattr(lk, name, spy(name))
+            setattr(cuda, name, spy_wrapper(name))
         fn()
     finally:
-        for name, f in orig.items():
-            setattr(lk, name, f)
-    return calls
+        for name in names:
+            setattr(lk, name, orig[name])
+            setattr(cuda, name, wrappers[name])
+    if len(launches) != len(calls):
+        raise AssertionError(f"{len(calls)} LK calls launched {len(launches)} kernels")
+    return [(*call, launch) for call, launch in zip(calls, launches)]
 
 
 def phase_lk_kernels(calls: list) -> dict:
     """lk_prep and lk_walk against their twins on one frontend frame's
-    recorded inputs (4 levels, forward then backward): bit-identical."""
+    recorded inputs (4 levels, forward then backward): bit-identical; then
+    each call's times, averaged over the frame's 8 launches of each."""
     plain = {"lk_prep": lk.lk_prep_plain, "lk_walk": lk.lk_walk_plain}
     kernel = {"lk_prep": lk.lk_prep, "lk_walk": lk.lk_walk}
-    rows = {name: dict(max_abs_err=0.0, ms=[], plain_ms=[]) for name in plain}
+    errs, times = {name: 0.0 for name in plain}, {name: [] for name in plain}
     if [c[0] for c in calls] != ["lk_prep", "lk_walk"] * 8:
         raise AssertionError(f"expected 8 prep/walk pairs, got {[c[0] for c in calls]}")
-    for i, (name, args, kwargs) in enumerate(calls):
+    for i, (name, args, kwargs, launch) in enumerate(calls):
         got = kernel[name](*args, **kwargs)
         want = plain[name](*args, **kwargs)
         for a, b in zip(got, want):
             fa, fb = a.float().nan_to_num(-1e30), b.float().nan_to_num(-1e30)
             require_equal(f"{name} call {i}", fa, fb)
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs(fa, fb))
-        ms = gpu_ms(lambda: kernel[name](*args, **kwargs))
-        plain_ms = gpu_ms(lambda: plain[name](*args, **kwargs), 5)
-        rows[name]["ms"].append(ms)
-        rows[name]["plain_ms"].append(plain_ms)
+            errs[name] = max(errs[name], max_abs(fa, fb))
+        times[name].append(measure(name, lambda: getattr(cuda, name)(*launch),
+                                   lambda: plain[name](*args, **kwargs), 5))
         shape = "x".join(str(d) for d in args[0].shape)
-        print(f"[lk] {name} call {i} ({shape}): {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+        print(f"[lk] {name} call {i} ({shape}): {times_line(times[name][-1])}")
     bounds = lk_bounds(calls)
-    for name, row in rows.items():
-        total, total_plain = sum(row["ms"]), sum(row["plain_ms"])
-        row["ms"], row["plain_ms"] = total / 8, total_plain / 8
-        row.update(bounds[name])
-        print(f"[lk] {name}: {total:.4f} ms per frame (8 launches) vs plain {total_plain:.4f} ms, "
-              f"bound {row['bound_ms']:.5f} ms a launch ({row['bound_by']}), "
-              f"max |diff| {row['max_abs_err']}")
+    rows = {}
+    for name in plain:
+        rows[name] = row = dict(max_abs_err=errs[name], **summarize(times[name]), **bounds[name])
+        print(f"[lk] {name}, a launch (mean of 8): {times_line(row)}; bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max |diff| {row['max_abs_err']}")
     return rows
 
 
@@ -766,7 +942,7 @@ def phase_frontend(canvas, rig, config, dev) -> dict:
 
 
 def phase_frontend_stage_times(fe, rig, config) -> None:
-    """Device time of each stage of one frontend frame (the last timed one)."""
+    """Call time of each stage of one frontend frame (the last timed one)."""
     from ocean_perception_tpu_torch.mesher.foreground import estimate_foreground_mask
     from ocean_perception_tpu_torch.mesher.object_mesher import mesher_device_step
     from ocean_perception_tpu_torch.tracking.detector import detect_features
@@ -780,23 +956,23 @@ def phase_frontend_stage_times(fe, rig, config) -> None:
     table = state.table
     pyr = tuple(image_pyramid(gl, p.tracker.lk.max_level + 1))
     st = {}
-    st["frame (full_frontend_step)"] = gpu_ms(
+    st["frame (full_frontend_step)"] = call_ms(
         lambda: full_frontend_step(state, graph, prev, left, right, rig, config, p,
                                    device=left.device), 5)
-    st["perception_step"] = gpu_ms(lambda: perception_step(left, right, rig, config, left.device), 5)
-    st["mesher half (mesher_device_step)"] = gpu_ms(
+    st["perception_step"] = call_ms(lambda: perception_step(left, right, rig, config, left.device), 5)
+    st["mesher half (mesher_device_step)"] = call_ms(
         lambda: mesher_device_step(state, graph, prev, gl, gr, fxb, p), 5)
-    st["  tracker (track_and_triangulate)"] = gpu_ms(
+    st["  tracker (track_and_triangulate)"] = call_ms(
         lambda: track_and_triangulate(state, prev, gl, gr, fxb, p.tracker), 5)
-    st["    image pyramid"] = gpu_ms(lambda: image_pyramid(gl, p.tracker.lk.max_level + 1))
-    st["    LK, forward + backward (track_points_ring)"] = gpu_ms(
+    st["    image pyramid"] = call_ms(lambda: image_pyramid(gl, p.tracker.lk.max_level + 1))
+    st["    LK, forward + backward (track_points_ring)"] = call_ms(
         lambda: lk.track_points_ring(state.ring, pyr, table.pixels, table.alive, table.missed,
                                      p.tracker.lk), 10)
-    st["    detector"] = gpu_ms(lambda: detect_features(gl, p.tracker.detector, table.pixels,
+    st["    detector"] = call_ms(lambda: detect_features(gl, p.tracker.detector, table.pixels,
                                                         table.alive), 10)
-    st["    stripe matcher"] = gpu_ms(lambda: match_rectified(gl, gr, table.pixels, table.alive,
+    st["    stripe matcher"] = call_ms(lambda: match_rectified(gl, gr, table.pixels, table.alive,
                                                               p.tracker.matcher), 10)
-    st["  foreground mask"] = gpu_ms(lambda: estimate_foreground_mask(
+    st["  foreground mask"] = call_ms(lambda: estimate_foreground_mask(
         gl, p.foreground_ksize, p.foreground_min_gradient))
     frame = st["frame (full_frontend_step)"]
     for k, v in st.items():

@@ -221,6 +221,49 @@ def test_patchmatch_kernels_match_plain(cuda_device, bf16):
     torch.cuda.synchronize()
 
 
+def _adversarial_fronts(C, seed=5):
+    """Fronts on which a pass's compare flips often: disparities uniform in
+    [0, D), half of them on the half-integer grid (rounding ties), and costs
+    drawn from the volume's own entries at random, in its dtype."""
+    rng = np.random.default_rng(seed)
+    H, W, D = C.shape
+    disp = rng.uniform(0, D, (H, W)).astype(np.float32)
+    half = rng.random((H, W)) < 0.5
+    disp[half] = np.floor(disp[half] * 2) / 2
+    pick = torch.from_numpy(rng.integers(0, C.numel(), H * W)).to(C.device)
+    return torch.from_numpy(disp).to(C.device), C.reshape(-1)[pick].reshape(H, W).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,W,D,chunks,chunks_y", [
+    (40, 72, 24, 4, 2),   # 40 rows: a partial row block; w = 28 and 30
+    (45, 70, 32, 1, 1),   # one strip: a row pass of w = 80, over two staged segments
+    (33, 100, 20, 5, 3),  # 33 rows, one past two blocks; w = 30 and 21
+])
+def test_propagate_kernels_on_adversarial_fronts(cuda_device, dtype, H, W, D, chunks, chunks_y):
+    """pm_propagate and pm_propagate_strip against their twins where the
+    compare flips often, in geometries whose row counts and scan lengths are
+    no multiple of the row kernel's block (16 rows), speculation depth (4) or
+    staged segment (64 positions), and whose first strips lie at x < D,
+    where the x - pr clamp bites."""
+    l, r, _ = _stereo_inputs(cuda_device, H, W, D)
+    gl, gr = gradient_magnitude(l), gradient_magnitude(r)
+    p = tpm.PatchMatchParams(max_disp=D, chunks=chunks, chunks_y=chunks_y)
+    C = tcost.cost_volume(l, r, D, 0.9, gl, gr, dtype=dtype)
+    vr, vc = tcost.build_strip_volumes(l, r, gl, gr, D, 0.9, chunks, chunks_y, dtype)
+    disp, cost = _adversarial_fronts(C)
+    cuda.reset_launches()
+    for direction, axis in tpm.PASSES:
+        want = tpm._propagate_plain(C, disp, cost, direction, axis, p)
+        assert (want[0] != disp).any()
+        for got in (tpm._propagate(C, disp, cost, direction, axis, p),
+                    tpm._propagate_strip(vr if axis == 1 else vc, disp, cost, direction, axis, p)):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (direction, axis)
+    assert cuda.LAUNCHES["pm_propagate"] == cuda.LAUNCHES["pm_propagate_strip"] == 4
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_build_volumes_kernel_matches_plain(cuda_device, dtype):

@@ -91,16 +91,31 @@ def test_cost_volume_from_images(pair):
     np.testing.assert_allclose(ours, ref, atol=1e-5)
 
 
+def _adversarial_fronts(C, seed=5):
+    """Fronts on which a pass's compare flips often: disparities uniform in
+    [0, D), half of them on the half-integer grid (rounding ties), and costs
+    drawn from the volume's own entries at random, in its dtype."""
+    rng = np.random.default_rng(seed)
+    C = np.asarray(C)
+    h, w, d_max = C.shape
+    disp = rng.uniform(0, d_max, (h, w)).astype(np.float32)
+    half = rng.random((h, w)) < 0.5
+    disp[half] = np.floor(disp[half] * 2) / 2
+    return disp, C.reshape(-1)[rng.integers(0, C.size, h * w)].reshape(h, w)
+
+
+@pytest.mark.parametrize("fronts", ["seeded", "adversarial"])
 @pytest.mark.parametrize("direction,axis", [(1, 1), (1, 0), (-1, 1), (-1, 0)])
-def test_propagate_pass_bit_exact(volume, direction, axis):
+def test_propagate_pass_bit_exact(volume, direction, axis, fronts):
     v = volume
+    disp, cost = (v["disp"], v["cost"]) if fronts == "seeded" else _adversarial_fronts(v["C"])
     layout = (jpm._layout_rows if axis == 1 else jpm._layout_cols)(v["C"], v["jp"])
     ref_d, ref_c = jax.jit(
-        lambda d, c: jpm._propagate(layout, d, c, direction, axis, v["jp"]))(v["disp"], v["cost"])
-    ours_d, ours_c = tpm._propagate(_t(v["C"]), _t(v["disp"]), _t(v["cost"]), direction, axis, v["tp"])
+        lambda d, c: jpm._propagate(layout, d, c, direction, axis, v["jp"]))(disp, cost)
+    ours_d, ours_c = tpm._propagate(_t(v["C"]), _t(disp), _t(cost), direction, axis, v["tp"])
     np.testing.assert_array_equal(ours_d.numpy(), np.asarray(ref_d))
     np.testing.assert_array_equal(_np(ours_c), np.asarray(ref_c, np.float32))
-    assert (np.asarray(ref_d) != np.asarray(v["disp"])).any()  # the pass did something
+    assert (np.asarray(ref_d) != np.asarray(disp)).any()  # the pass did something
 
 
 def test_refresh_matches_noise_then_cost_map(volume):
