@@ -10,15 +10,19 @@ disparity and motion, in phases:
 3. each PatchMatch kernel against its plain PyTorch twin on the card, at the
    shapes the 720p path gives it (bit-identical; each pass on seeded and on
    adversarial fronts, in bf16 and float32), with its times (below);
-4. ``perception_step`` end to end: 8 frames, checking the kernels' launch
-   counts, finite outputs and the disparity against the scene's truth;
-   then the call time of each stage;
+4. ``perception_step`` end to end: three runs of 8 frames, checking the
+   kernels' launch counts, finite outputs and the disparity against the
+   scene's truth; its host syncs a frame (there must be none); then the
+   whole step captured in one CUDA graph and replayed over the 8 frames
+   (ms/frame beside the call path's; its disparity equal to the call
+   path's); then the call time of each stage;
 5. the same perception frame through the port on the CPU, against the card;
 6. ``build_volumes`` (bf16 and float32) and each strip-layout PatchMatch
    kernel against their twins at the 720p shapes (bit-identical, the passes
    as in phase 3), with their times, then the whole strip-volume match;
-7. ``perception_step`` with ``use_strip_volumes=True``: 8 frames, launch
-   counts, and a disparity equal bit for bit to phase 4's on the same frame;
+7. ``perception_step`` with ``use_strip_volumes=True``, as in phase 4 (runs,
+   launch counts, no host sync, graph replay), with a disparity equal bit
+   for bit to phase 4's on the same frame;
 8. the other stereo configurations at 720p: the SGM and WTA engines of
    ``perception_step`` and two-sided and ZNCC PatchMatch (through
    ``estimate_disparity`` at the perception step's half resolution, then
@@ -31,7 +35,8 @@ disparity and motion, in phases:
    matcher, landmark graph) over 8 frames of a sequence that moves -2 px a
    frame with an 8 px stereo disparity: launch counts, finite outputs, the
    track error against the known motion, the stripe disparities, ms/frame,
-   the tracker's share, host syncs per frame and the stage times;
+   the tracker's share, host syncs per frame (at most FRONTEND_SYNCS, each
+   printed with its place in the port) and the stage times;
 11. the same frontend frame through the port on the CPU, against the card.
 
 A kernel's times, at each call shape of its path: its device time two ways,
@@ -62,7 +67,9 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,6 +96,9 @@ TRUE_DISP = 8
 N_FRAMES = 8
 N_ENGINE_FRAMES = 3
 N_TIMED = 20
+N_RUNS = 3  # timed runs of N_FRAMES frames of each perception layout
+# Host syncs a full_frontend_step frame keeps (PERF.md, section 5).
+FRONTEND_SYNCS = 0
 # Launches of each kernel per frame of each path.
 PER_FRAME = {"cost_volume": 1, "pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}
 PER_STRIP_FRAME = {"build_volumes": 1, "pm_refresh_strip": 3, "pm_propagate_strip": 12,
@@ -466,30 +476,34 @@ def accuracy(disp: torch.Tensor) -> tuple[float, float]:
 
 
 def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
-                     per_frame=PER_FRAME) -> tuple[dict, torch.Tensor]:
-    """N_FRAMES perturbed frames through perception_step; checks launches,
-    finiteness and accuracy; returns the launch counts and frame 0's disparity."""
+                     per_frame=PER_FRAME) -> tuple[dict, torch.Tensor, list]:
+    """N_RUNS runs of N_FRAMES perturbed frames through perception_step;
+    checks launches, finiteness, accuracy and that a frame makes no host
+    sync; returns the last run's launch counts, frame 0's disparity and the
+    runs' ms/frame."""
     dev = left_rgb.device
     frames = [left_rgb + float(i) * 1e-6 for i in range(N_FRAMES)]
     perception_step(frames[0], right_rgb, rig, config, device=dev)  # warm-up
     torch.cuda.synchronize()
 
-    cuda.reset_launches()
-    digest = torch.zeros((), device=dev, dtype=torch.float64)
-    outs = []
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for f in frames:
-        out = perception_step(f, right_rgb, rig, config, device=dev)
-        # Consume every output, so no stage's work can be skipped.
-        digest += out.disparity.sum() + out.depth.sum() + out.enhanced_left.sum()
-        outs.append(out)
-    end.record()
-    end.synchronize()
-    launches = dict(cuda.LAUNCHES)
-    ms_frame = start.elapsed_time(end) / N_FRAMES
+    runs = []
+    for _ in range(N_RUNS):
+        cuda.reset_launches()
+        digest = torch.zeros((), device=dev, dtype=torch.float64)
+        outs = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in frames:
+            out = perception_step(f, right_rgb, rig, config, device=dev)
+            # Consume every output, so no stage's work can be skipped.
+            digest += out.disparity.sum() + out.depth.sum() + out.enhanced_left.sum()
+            outs.append(out)
+        end.record()
+        end.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        runs.append(start.elapsed_time(end) / N_FRAMES)
+        require_launches(tag, launches, per_frame, N_FRAMES)
 
-    require_launches(tag, launches, per_frame, N_FRAMES)
     for i, out in enumerate(outs):
         for field, t in out._asdict().items():
             if not torch.isfinite(t).all():
@@ -502,10 +516,56 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
         raise AssertionError(f"median |disp - {TRUE_DISP}| = {med} px over valid pixels")
     if not frac > 0.5:
         raise AssertionError(f"valid fraction {frac}")
-    print(f"[{tag}] {N_FRAMES} frames: {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps), "
+    print(f"[{tag}] {N_RUNS} runs of {N_FRAMES} frames: "
+          f"{', '.join(f'{ms:.3f}' for ms in runs)} ms/frame "
+          f"({1000.0 / statistics.median(runs):.1f} fps at the median), "
           f"median |disp - {TRUE_DISP}| {med:.4f} px, valid {frac:.4f}, digest {float(digest):.6e}, "
           f"launches {launches}")
-    return launches, disp
+    sites = sync_sites(lambda: perception_step(frames[0], right_rgb, rig, config, device=dev))
+    torch.cuda.synchronize()
+    print_syncs(tag, sites)
+    if sites:
+        raise AssertionError(f"{tag}: perception_step made {len(sites)} host syncs")
+    return launches, disp, runs
+
+
+def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, tag="graph") -> float:
+    """perception_step captured whole in one CUDA graph, then replayed over
+    N_FRAMES perturbed frames copied into its input, every output consumed
+    as in phase_end_to_end; frame 0's replayed disparity must equal the call
+    path's bit for bit. Returns the replay's ms/frame."""
+    dev = left_rgb.device
+    frames = [left_rgb + float(i) * 1e-6 for i in range(N_FRAMES)]
+    static_left = frames[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        perception_step(static_left, right_rgb, rig, config, device=dev)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = perception_step(static_left, right_rgb, rig, config, device=dev)
+    graph.replay()
+    digest = torch.zeros((), device=dev, dtype=torch.float64)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for f in frames:
+        static_left.copy_(f)
+        graph.replay()
+        digest += out.disparity.sum() + out.depth.sum() + out.enhanced_left.sum()
+    end.record()
+    end.synchronize()
+    ms_frame = start.elapsed_time(end) / N_FRAMES
+    static_left.copy_(frames[0])
+    graph.replay()
+    require_equal(f"{tag}: replayed disparity vs the call path's", out.disparity, disp)
+    if not torch.isfinite(out.enhanced_left).all() or not torch.isfinite(out.depth).all():
+        raise AssertionError(f"{tag}: non-finite replayed outputs")
+    print(f"[{tag}] one CUDA graph a frame, {N_FRAMES} frames: {ms_frame:.3f} ms/frame "
+          f"({1000.0 / ms_frame:.1f} fps) against {statistics.median(call_runs):.3f} ms/frame "
+          f"by calls (median of {len(call_runs)} runs); digest {float(digest):.6e}; "
+          f"frame 0's disparity equal to the call path's")
+    return ms_frame
 
 
 def phase_stage_times(left_rgb, right_rgb, rig, config) -> None:
@@ -843,16 +903,34 @@ def phase_lk_kernels(calls: list) -> dict:
     return rows
 
 
-def count_syncs(fn) -> int:
-    """Host syncs made by fn(), as torch.cuda.set_sync_debug_mode reports them."""
-    with warnings.catch_warnings(record=True) as caught:
+def sync_sites(fn) -> list:
+    """One entry per host sync made by fn(), as torch.cuda.set_sync_debug_mode
+    reports it: the port's frames of the Python stack at the sync, innermost
+    first."""
+    sites = []
+
+    def record(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            # The port's frames, or else the innermost three of any file.
+            frames = [f for f in stack if "ocean_perception_tpu_torch" in f.filename] or stack[-3:]
+            sites.append(" <- ".join(f"{Path(f.filename).name}:{f.lineno}" for f in frames[::-1]))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sites
+
+
+def print_syncs(tag: str, sites: list) -> None:
+    print(f"[{tag}] host syncs per frame: {len(sites)}")
+    for site, n in sorted({s: sites.count(s) for s in sites}.items()):
+        print(f"[{tag}]   {n} x {site}")
 
 
 def phase_frontend(canvas, rig, config, dev) -> dict:
@@ -933,9 +1011,12 @@ def phase_frontend(canvas, rig, config, dev) -> dict:
     if alive < 50:
         raise AssertionError(f"{alive} landmarks alive")
 
-    syncs = count_syncs(lambda: step(5 + N_FRAMES))
+    sites = sync_sites(lambda: step(5 + N_FRAMES))
     torch.cuda.synchronize()
-    print(f"[frontend] host syncs per frame: {syncs}")
+    print_syncs("frontend", sites)
+    if len(sites) > FRONTEND_SYNCS:
+        raise AssertionError(f"frontend: {len(sites)} host syncs a frame, more than the "
+                             f"{FRONTEND_SYNCS} PERF.md names")
     return dict(launches=launches, calls=calls, ms_frame=ms_frame, frames=frames, params=params,
                 state=before[-2], graph=outs[-2].graph, prev=to_grayscale(frames[4 + N_FRAMES - 1][0]),
                 out=outs[-1])
@@ -978,10 +1059,12 @@ def phase_frontend_stage_times(fe, rig, config) -> None:
     for k, v in st.items():
         print(f"[frontend stages] {k}: {v:.4f} ms ({100.0 * v / frame:.1f}% of the frame)")
     syncs = {
-        "perception_step": count_syncs(lambda: perception_step(left, right, rig, config,
-                                                               left.device)),
-        "tracker": count_syncs(lambda: track_and_triangulate(state, prev, gl, gr, fxb, p.tracker)),
-        "mesher half": count_syncs(lambda: mesher_device_step(state, graph, prev, gl, gr, fxb, p)),
+        "perception_step": len(sync_sites(lambda: perception_step(left, right, rig, config,
+                                                                  left.device))),
+        "tracker": len(sync_sites(lambda: track_and_triangulate(state, prev, gl, gr, fxb,
+                                                                p.tracker))),
+        "mesher half": len(sync_sites(lambda: mesher_device_step(state, graph, prev, gl, gr, fxb,
+                                                                 p))),
     }
     torch.cuda.synchronize()
     print(f"[frontend stages] host syncs: {syncs}")
@@ -1025,15 +1108,18 @@ def main() -> int:
     config = PerceptionConfig(engine="patchmatch", max_disp=MAX_DISP, internal_scale=SCALE)
 
     rows = phase_kernels(left_rgb, right_rgb)
-    launches, disp = phase_end_to_end(left_rgb, right_rgb, rig, config)
+    launches, disp, runs = phase_end_to_end(left_rgb, right_rgb, rig, config)
+    phase_graph(left_rgb, right_rgb, rig, config, disp, runs)
     phase_stage_times(left_rgb, right_rgb, rig, config)
     phase_cpu_parity(left_rgb, right_rgb, rig, config, disp)
 
     rows.update(phase_strip_kernels(left_rgb, right_rgb))
     strip_config = dataclasses.replace(config, use_strip_volumes=True)
-    strip_launches, strip_disp = phase_end_to_end(left_rgb, right_rgb, rig, strip_config,
-                                                  "strip e2e", PER_STRIP_FRAME)
+    strip_launches, strip_disp, strip_runs = phase_end_to_end(left_rgb, right_rgb, rig,
+                                                              strip_config, "strip e2e",
+                                                              PER_STRIP_FRAME)
     require_equal("strip-volume perception disparity vs the (H, W, D) path's", strip_disp, disp)
+    phase_graph(left_rgb, right_rgb, rig, strip_config, disp, strip_runs, "strip graph")
     phase_engines(left_rgb, right_rgb, rig)
 
     fe = phase_frontend(canvas, rig, config, dev)

@@ -10,46 +10,161 @@
 //               float32, then cast to the output type.
 // Every rounding is pinned with an intrinsic so that nvcc's default
 // contraction cannot change a bit: the e-term is one FMA (what XLA's CPU
-// backend computes), the taps are __fadd_rn, the cast is round-to-nearest.
+// backend computes), the taps are __fadd_rn, the cast is round-to-nearest
+// (cost_terms.cuh, shared with volume_build.cu).
 //
 // Bound: the (H, W, D) output. At 360x640x64 bf16 that is 29.5 MB written
-// per frame; the four (H, W) float32 inputs (3.7 MB) stay in L2 and L1.
-// Design: one thread per output element with d fastest, so a warp stores
-// 32 consecutive elements (64 contiguous bytes in bf16) and its loads of the
-// left image and gradient are broadcasts of one pixel.
+// per frame, plus the four (H, W) float32 inputs read once (3.7 MB).
+// Design: a block stages its tile's image rows with their halo in shared
+// memory once (CostTile, cost_terms.cuh): kBand + 2 rows of L and GL, the
+// same rows of R and GR widened by the block's disparities. Each warp then
+// runs the row sweep below over the band, a run of kRun columns and 32
+// disparities: every e-term once, in registers (1.52 e-terms an output), the
+// images the only shared-memory reads. A lane of an output row writes its
+// pixel's 8 costs of a step as one 16-byte vector (two in float32): a warp's
+// store covers kBand rows x 64 contiguous bytes. The grid is one block per
+// tile.
 
 #include "cost_terms.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void cost_volume_kernel(const float* __restrict__ iml,
-                                   const float* __restrict__ imr,
-                                   const float* __restrict__ gl,
-                                   const float* __restrict__ gr,
-                                   T* __restrict__ out, int H, int W, int D,
-                                   float alpha, float beta) {
-  const long long n = (long long)H * W * D;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += stride) {
-    const int d = (int)(t % D);
-    const long long p = t / D;
-    const int x = (int)(p % W);
-    const int y = (int)(p / W);
-    const int ym = max(y - 1, 0), yp = min(y + 1, H - 1);
-    const int xm = max(x - 1, 0), xp = min(x + 1, W - 1);
-    store(out, t, stencil_sum(e_term(iml, imr, gl, gr, W, y, x, d, alpha, beta),
-                              e_term(iml, imr, gl, gr, W, ym, xm, d, alpha, beta),
-                              e_term(iml, imr, gl, gr, W, ym, xp, d, alpha, beta),
-                              e_term(iml, imr, gl, gr, W, yp, xm, d, alpha, beta),
-                              e_term(iml, imr, gl, gr, W, yp, xp, d, alpha, beta)));
+constexpr int kBand = 6;             // output rows a block: a lane row each, and the halo
+constexpr int kRun = 14;             // output columns a warp sweeps: 16 steps
+constexpr int kRuns = 2;             // warps along x a block
+constexpr int kDW = 32;              // disparities a warp: 4 lanes x 8
+constexpr int kDGroups = 2;          // warps along d a block
+constexpr int kTX = kRun * kRuns;    // columns a block
+constexpr int kDB = kDW * kDGroups;  // disparities a block
+constexpr int kThreads = 32 * kRuns * kDGroups;
+
+// The row sweep. A warp's lane (r, c) = (lane / 4, lane % 4) holds staged
+// row r of t (pixel row y0 - 1 + r: the band's rows and the halo row above
+// and below) and the 8 disparities dbase .. dbase+7 (its own dbase). The
+// warp walks the columns x = xs - 1 .. xs + kRun, one a step: step s
+// computes the lane's 8 e-terms of column x = xs - 1 + s once, in
+// registers, and passes them to the lanes of the rows above and below by
+// shuffle (a column right of W - 1 takes column W - 1's, carried). From
+// step 2 on, a lane of rows 1 .. kBand has its pixel's costs at column x - 1
+// and hands them to sink(s, v): v[k] = C(y0 - 1 + r, xs - 2 + s, dbase + k),
+// summed in STENCIL order. Every lane of the warp must call (the shuffles);
+// a lane's rows, columns or disparities outside the image give values the
+// sink drops. (Written as a function with a sink, the sweep took 9% less
+// device time on the H100 than the same code written into the kernel, in
+// turns in one run of cost_turns.py.)
+template <typename Sink>
+__device__ __forceinline__ void sweep_row(const CostTile& t, int xs, int dbase, int W,
+                                          float alpha, float beta, Sink&& sink) {
+  constexpr int kSteps = kRun + 2;
+  static_assert((kBand + 2) * 4 == 32, "a lane per staged row and chunk of 8 d");
+  constexpr int kWin = 8 + 7;  // R samples 8 steps of 8 disparities read
+  const int r = (threadIdx.x & 31) >> 2;
+  const float* l_row = t.l + r * t.cols + (xs - t.x0);  // step s: column xs - 1 + s
+  const float* gl_row = t.gl + r * t.cols + (xs - t.x0);
+  // Step s, disparity dbase + k: staged column xs - 1 + s - dbase - k -
+  // (x0 - d_hi) = j0 + (s - k + 7).
+  const int j0 = r * t.rw + (xs - 1 - dbase) - (t.x0 - t.d_hi) - 7;
+  const float* r_row = t.r + j0;
+  const float* gr_row = t.gr + j0;
+
+  // Carried from step to step (x is the step's column): P = e(y, x-1) +
+  // e(y-1, x-2), the first sum of the output at x-1; Dm2 = e(y+1, x-2);
+  // Um1 = e(y-1, x-1); Dm1 = e(y+1, x-1).
+  float P[8], Dm2[8], Um1[8], Dm1[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) P[k] = Dm2[k] = Um1[k] = Dm1[k] = 0.f;
+
+#pragma unroll
+  for (int g = 0; g < kSteps; g += 8) {
+    const int n = min(8, kSteps - g);  // steps of this group
+    // The group's R samples: step g + u, disparity dbase + k reads
+    // w[u - k + 7].
+    float wr[kWin], wg[kWin];
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) {
+      wr[i] = i < n + 7 ? r_row[g + i] : 0.f;
+      wg[i] = i < n + 7 ? gr_row[g + i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (u >= n) break;
+      const int s = g + u, x = xs - 1 + s;
+      const float lv = l_row[s], glv = gl_row[s];
+      float e[8], U[8], Dn[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) e[k] = e_value(lv, wr[u - k + 7], glv, wg[u - k + 7], alpha, beta);
+      if (x < W) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          U[k] = __shfl_up_sync(0xffffffffu, e[k], 4);    // lane (r-1, c): row y-1
+          Dn[k] = __shfl_down_sync(0xffffffffu, e[k], 4);  // lane (r+1, c): row y+1
+        }
+      } else {
+        // Right of the image: the neighbours' e-terms are column W-1's.
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          U[k] = Um1[k];
+          Dn[k] = Dm1[k];
+        }
+      }
+      if (s >= 2) {
+        // C(y, x-1) = ((((e(y,x-1) + e(y-1,x-2)) + e(y-1,x)) + e(y+1,x-2)) + e(y+1,x)).
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = __fadd_rn(__fadd_rn(__fadd_rn(P[k], U[k]), Dm2[k]), Dn[k]);
+        sink(s, v);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        P[k] = __fadd_rn(e[k], Um1[k]);
+        Dm2[k] = Dm1[k];
+        Um1[k] = U[k];
+        Dm1[k] = Dn[k];
+      }
+    }
   }
 }
 
-int grid_for(long long n, int threads) {
-  long long blocks = (n + threads - 1) / threads;
-  const long long cap = 132LL * 32;  // grid-stride beyond a few waves
-  return (int)(blocks < cap ? blocks : cap);
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cost_volume_kernel(const float* __restrict__ iml, const float* __restrict__ imr,
+                   const float* __restrict__ gl, const float* __restrict__ gr,
+                   T* __restrict__ out, int H, int W, int D, float alpha, float beta, int vec) {
+  __shared__ __align__(16) float img[CostTile::floats(kBand, kTX, kDB)];
+  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kBand, d_lo = blockIdx.z * kDB;
+  CostTile t;
+  t.stage(img, iml, imr, gl, gr, H, W, y0, x0, kBand, kTX, d_lo, d_lo + kDB);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int xs = x0 + kRun * (warp % kRuns), dw = d_lo + kDW * (warp / kRuns);
+  if (xs >= W || dw >= D) return;  // no barrier follows
+  const int r = lane >> 2, dbase = dw + 8 * (lane & 3), y = y0 - 1 + r;
+  const bool out_lane = r >= 1 && r <= kBand && y < H && dbase < D;
+  T* o = out + ((long long)y * W + xs - 2) * D + dbase;  // step s writes column xs - 2 + s
+  sweep_row(t, xs, dbase, W, alpha, beta, [&](int s, const float* v) {
+    if (!out_lane || xs - 2 + s >= W) return;
+    T* ox = o + (long long)s * D;
+    if (vec) {
+      store8(ox, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (dbase + k < D) store(ox, k, v[k]);
+    }
+  });
+}
+
+template <typename T>
+int launch(const void* iml, const void* imr, const void* gl, const void* gr, void* out, int H,
+           int W, int D, float alpha, float beta, cudaStream_t s) {
+  // 16-byte stores need whole chunks of 8 d at 16-byte aligned addresses.
+  const int vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((W + kTX - 1) / kTX, (H + kBand - 1) / kBand, (D + kDB - 1) / kDB);
+  cost_volume_kernel<T><<<grid, kThreads, 0, s>>>((const float*)iml, (const float*)imr,
+                                                 (const float*)gl, (const float*)gr, (T*)out, H,
+                                                 W, D, alpha, beta, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -57,19 +172,8 @@ int grid_for(long long n, int threads) {
 extern "C" int opt_cost_volume(const void* iml, const void* imr, const void* gl,
                                const void* gr, void* out, int H, int W, int D,
                                float alpha, float beta, int out_bf16, void* stream) {
-  const long long n = (long long)H * W * D;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int blocks = grid_for(n, threads);
+  if ((long long)H * W * D == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (out_bf16) {
-    cost_volume_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const float*)iml, (const float*)imr, (const float*)gl, (const float*)gr,
-        (__nv_bfloat16*)out, H, W, D, alpha, beta);
-  } else {
-    cost_volume_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)iml, (const float*)imr, (const float*)gl, (const float*)gr,
-        (float*)out, H, W, D, alpha, beta);
-  }
-  return (int)cudaGetLastError();
+  return out_bf16 ? launch<__nv_bfloat16>(iml, imr, gl, gr, out, H, W, D, alpha, beta, s)
+                  : launch<float>(iml, imr, gl, gr, out, H, W, D, alpha, beta, s);
 }

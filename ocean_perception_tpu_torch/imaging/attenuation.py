@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.lm import LMConfig, lm_solve
-from .formation import BETA_GUESS_1, beta_d_of_z
+from .formation import beta_d_of_z, beta_guesses
 
 
 def _grid_samples(
@@ -79,7 +79,7 @@ def estimate_beta(
 ) -> BetaFit:
     """LM fit of beta_D from X0, which is (12,) or a batch (G, 12)."""
     if X0 is None:
-        X0 = torch.as_tensor(BETA_GUESS_1, device=range_img.device)
+        X0 = beta_guesses(range_img.device)[0]
     X0 = _clamp_beta(X0.float())
     z, E, valid = _grid_samples(range_img, illuminant, num_px)
     w_valid = valid.float()
@@ -138,8 +138,9 @@ def estimate_beta_multi_start(
 ) -> BetaFit:
     """Fit from every guess (one batched LM run) and keep the lowest error."""
     fits = estimate_beta(range_img, illuminant, num_px=num_px, iters=iters, X0=guesses)
-    best = torch.argmin(fits.error)
-    return BetaFit(fits.X[best], fits.error[best])
+    # A (1,) index tensor: a 0-d one would be read back to the host.
+    best = torch.argmin(fits.error).reshape(1)
+    return BetaFit(fits.X.index_select(0, best)[0], fits.error.index_select(0, best)[0])
 
 
 def correct_attenuation(image: torch.Tensor, range_img: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ import torch
 
 from ..ops.histogram import masked_percentile_threshold
 from ..ops.lm import LMConfig, lm_solve
-from .formation import B_DEFAULT, BETA_B_DEFAULT, BETA_DP_DEFAULT, JP_DEFAULT
+from .formation import backscatter_start
 
 BACKGROUND_RANGE = 20.0  # meters; backscatter.cpp kBackgroundRange
 MIN_VALID_RANGE = 0.1    # meters; closer pixels carry no range signal
@@ -103,9 +103,7 @@ def estimate_backscatter(
 ) -> BackscatterFit:
     """Fit the 12-parameter backscatter model to sampled dark pixels, from
     the Sea-thru D5 defaults."""
-    dev = image.device
-    X0 = torch.cat([torch.as_tensor(v, device=dev)
-                    for v in (B_DEFAULT, BETA_B_DEFAULT, JP_DEFAULT, BETA_DP_DEFAULT)])
+    X0 = backscatter_start(image.device)
     rgb, z, valid = sample_masked_pixels(image, range_img, dark_mask, num_px)
     w_valid = valid.float()
     n_valid = w_valid.sum()

@@ -15,7 +15,7 @@ import torch
 from ..ops.image import compute_intensity
 from .attenuation import correct_attenuation, estimate_beta_multi_start
 from .backscatter import estimate_backscatter, find_dark_mask, remove_backscatter
-from .formation import BETA_GUESS_1, BETA_GUESS_2
+from .formation import beta_guesses
 from .illuminant import estimate_illuminant_range_guided
 
 
@@ -72,11 +72,12 @@ def enhance_underwater(
         D, range_img, radius, params.guided_eps, params.guided_subsample
     )
 
-    starts = [torch.as_tensor(BETA_GUESS_1, device=dev), torch.as_tensor(BETA_GUESS_2, device=dev)]
+    starts = beta_guesses(dev)
     if beta_D_guess is not None:
-        starts.append(torch.as_tensor(beta_D_guess, dtype=torch.float32, device=dev))
+        guess = torch.as_tensor(beta_D_guess, dtype=torch.float32, device=dev)
+        starts = torch.cat([starts, guess[None]])
     beta_fit = estimate_beta_multi_start(
-        range_img, il, torch.stack(starts),
+        range_img, il, starts,
         num_px=params.beta_num_px, iters=params.beta_opt_iters,
     )
 

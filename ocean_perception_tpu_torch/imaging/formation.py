@@ -9,6 +9,8 @@ Channel order is RGB (the reference stores BGR; each 3-block is reversed).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -27,6 +29,20 @@ BETA_GUESS_2 = np.array(  # "works well for D5"
     [0.26, 0.088, 0.023, -0.08, -0.051, -0.032, 1.69, 1.04, 0.025, -2.3, -2.1, -0.039],
     dtype=np.float32,
 )
+
+
+@functools.lru_cache(maxsize=8)
+def backscatter_start(device: torch.device) -> torch.Tensor:
+    """(12,) [B, beta_B, J', beta_D'] D5 defaults on ``device``, copied there
+    once (the backscatter fit's start)."""
+    return torch.as_tensor(np.concatenate([B_DEFAULT, BETA_B_DEFAULT, JP_DEFAULT, BETA_DP_DEFAULT]),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def beta_guesses(device: torch.device) -> torch.Tensor:
+    """(2, 12) [BETA_GUESS_1, BETA_GUESS_2] on ``device``, copied there once."""
+    return torch.as_tensor(np.stack([BETA_GUESS_1, BETA_GUESS_2]), device=device)
 
 
 def beta_d_of_z(X: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,10 @@ Two numerical rules keep the port equal to the JAX reference:
 - ``torch.sqrt`` on a CPU float32 tensor is not correctly rounded (it
   differs from IEEE sqrt on about 0.7% of values). :func:`sqrt_f32` is, on
   any device, and every square root of the port goes through it.
+
+The index and weight constants (reflect-101 borders, resize taps) are built
+once per shape and device and cached as tensors on that device: a copy from
+host memory on every call would stall the CUDA stream.
 """
 
 from __future__ import annotations
@@ -62,7 +66,6 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-@functools.lru_cache(maxsize=64)
 def _reflect101_np(n: int, lo: int, hi: int) -> np.ndarray:
     """Source index of padded positions -lo .. n+hi-1 under BORDER_REFLECT_101.
 
@@ -76,7 +79,9 @@ def _reflect101_np(n: int, lo: int, hi: int) -> np.ndarray:
     return np.where(j >= n, period - j, j)
 
 
-def _reflect101_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _reflect101_index(n: int, lo: int, hi: int, device: torch.device) -> torch.Tensor:
+    """:func:`_reflect101_np` on ``device``, copied there once."""
     return torch.as_tensor(_reflect101_np(n, lo, hi), device=device)
 
 
@@ -201,7 +206,6 @@ def image_pyramid(image: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
     return levels
 
 
-@functools.lru_cache(maxsize=32)
 def _linear_taps(m: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
     """Nonzero taps of ``jax.image.resize``'s linear weight matrix (m -> n):
     the triangle kernel at half-pixel centres, widened when downsampling
@@ -227,25 +231,37 @@ def _linear_taps(m: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, wt
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_taps_on(m: int, n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_linear_taps` on ``device``, tap-major: (index, weight), both
+    (T, n), copied there once."""
+    idx, wt = _linear_taps(m, n)
+    return (torch.as_tensor(np.ascontiguousarray(idx.T), device=device),
+            torch.as_tensor(np.ascontiguousarray(wt.T), device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_index(m: int, n: int, device: torch.device) -> torch.Tensor:
+    """Source index of each of n outputs resampling m inputs, nearest, on
+    ``device``: float32 offsets, exactly as ``jax.image.resize`` computes them."""
+    off = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m) / np.float32(n)
+    return torch.as_tensor(np.floor(off.astype(np.float32)).astype(np.int64), device=device)
+
+
 def _resize_axis(image: torch.Tensor, n: int, axis: int, method: str) -> torch.Tensor:
     m = image.shape[axis]
     if m == n:
         return image
     if method == "nearest":
-        # float32 offsets, exactly as jax.image.resize computes them.
-        off = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m) / np.float32(n)
-        idx = np.floor(off.astype(np.float32)).astype(np.int64)
-        return image.index_select(axis, torch.as_tensor(idx, device=image.device))
+        return image.index_select(axis, _nearest_index(m, n, image.device))
     if method != "linear":
         raise NotImplementedError(f"resize method {method!r} is not ported")
-    idx, wt = _linear_taps(m, n)
+    idx, wt = _linear_taps_on(m, n, image.device)
     shape = [1] * image.ndim
     shape[axis] = n
     out = None
-    for t in range(idx.shape[1]):
-        sel = image.index_select(axis, torch.as_tensor(idx[:, t], device=image.device))
-        w = torch.as_tensor(wt[:, t], device=image.device).reshape(shape)
-        term = sel * w
+    for t in range(idx.shape[0]):
+        term = image.index_select(axis, idx[t]) * wt[t].reshape(shape)
         out = term if out is None else out + term
     return out
 

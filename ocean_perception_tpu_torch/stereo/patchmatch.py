@@ -260,8 +260,11 @@ def mask_background_strip(V_col: torch.Tensor, disp: torch.Tensor, p: PatchMatch
 
 def _improve_threshold(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
     """improve_factor * cost(0) in the volume's dtype: JAX rounds the factor
-    to bf16 for a bf16 volume and rounds the product back to bf16."""
-    return torch.tensor(p.improve_factor, dtype=C.dtype, device=C.device) * C[..., 0]
+    to bf16 for a bf16 volume and rounds the product back to bf16. The
+    factor, so rounded, is a Python float: exact in float32, where torch
+    multiplies, and no copy to the device."""
+    factor = float(torch.tensor(p.improve_factor, dtype=C.dtype))
+    return factor * C[..., 0]
 
 
 def mask_occlusions(displ: torch.Tensor, dispr: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:

@@ -42,13 +42,12 @@ class SgmParams:
     background_improve: Optional[float] = None
 
 
-def _sgm_step(prev: torch.Tensor, c_row: torch.Tensor, p1: float, p2: float,
-              big: torch.Tensor) -> torch.Tensor:
-    """One recurrence step: prev (..., M, D) -> (..., M, D)."""
+def _sgm_step(prev: torch.Tensor, c_row: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
+    """One recurrence step: prev (..., M, D) -> (..., M, D); the neighbour
+    past either end of D is 1e9."""
     prev_min = prev.amin(dim=-1, keepdim=True)
-    pad = big.expand(prev[..., :1].shape)
-    up = torch.cat([pad, prev[..., :-1]], dim=-1)
-    down = torch.cat([prev[..., 1:], pad], dim=-1)
+    up = torch.nn.functional.pad(prev[..., :-1], (1, 0), value=1e9)
+    down = torch.nn.functional.pad(prev[..., 1:], (0, 1), value=1e9)
     best = torch.minimum(torch.minimum(prev, torch.minimum(up, down) + p1), prev_min + p2)
     return c_row + best - prev_min
 
@@ -61,12 +60,11 @@ def _directional_pass(C_sweep: torch.Tensor, p1: float, p2: float, chunks: int =
     + halo steps instead of N); each strip warms up over ``halo``
     predecessor rows, clamped to row 0."""
     B, N, M, D = C_sweep.shape
-    big = torch.tensor(1e9, dtype=C_sweep.dtype, device=C_sweep.device)
     c = _effective_chunks(N, chunks)
     if c <= 1:
         outs = [C_sweep[:, 0]]
         for j in range(1, N):
-            outs.append(_sgm_step(outs[-1], C_sweep[:, j], p1, p2, big))
+            outs.append(_sgm_step(outs[-1], C_sweep[:, j], p1, p2))
         return torch.stack(outs, dim=1)
 
     n = N // c
@@ -77,7 +75,7 @@ def _directional_pass(C_sweep: torch.Tensor, p1: float, p2: float, chunks: int =
     Cc = C_sweep[:, pos]                       # (B, c, w, M, D)
     outs = [Cc[:, :, 0]]
     for k in range(1, w):
-        outs.append(_sgm_step(outs[-1], Cc[:, :, k], p1, p2, big))
+        outs.append(_sgm_step(outs[-1], Cc[:, :, k], p1, p2))
     interior = torch.stack(outs[halo:], dim=2)  # (B, c, n, M, D)
     return interior.reshape(B, N, M, D)
 

@@ -112,6 +112,9 @@ def _fill_free_slots(table: TrackTable, det_pts: torch.Tensor, det_valid: torch.
 
     def scatter(field: torch.Tensor, values) -> torch.Tensor:
         out = torch.cat([field, field[:1]])
+        if not isinstance(values, torch.Tensor):
+            # Filled on the device: a Python value would be copied there.
+            values = torch.full((), values, dtype=field.dtype, device=field.device)
         out[target] = values
         return out[:K]
 

@@ -26,6 +26,7 @@ from ocean_perception_tpu.ops import guided_filter as jgf
 from ocean_perception_tpu.ops import histogram as jhist
 from ocean_perception_tpu.ops import image as jimg
 from ocean_perception_tpu.ops import lm as jlm
+from ocean_perception_tpu_torch.imaging import formation as tform
 from ocean_perception_tpu_torch.ops import guided_filter as tgf
 from ocean_perception_tpu_torch.ops import histogram as thist
 from ocean_perception_tpu_torch.ops import image as timg
@@ -217,3 +218,80 @@ def test_lm_solve_singular_step_is_rejected():
     ours = tlm.lm_solve(rj_torch, torch.from_numpy(x0), tlm.LMConfig(max_iters=3))
     np.testing.assert_array_equal(ours.x.numpy(), np.asarray(ref.x))
     np.testing.assert_array_equal(ours.x.numpy(), x0)
+
+
+# --- constants cached on the device -----------------------------------------
+
+
+def _nearest_from_jax(m, n):
+    """Source index of each nearest-resized sample: jax.image.resize of
+    arange(m) to n samples."""
+    src = jax.image.resize(jnp.arange(m, dtype=jnp.float32), (n,), "nearest")
+    return np.asarray(src).astype(np.int64)
+
+
+DEVICE_CONSTANTS = {
+    # name: (the cached constant on a device, the value it must hold)
+    "reflect101": (lambda dev: timg._reflect101_index(37, 4, 4, dev),
+                   lambda: np.pad(np.arange(37), 4, mode="reflect")),
+    "reflect101, pads wider than the image": (lambda dev: timg._reflect101_index(5, 9, 9, dev),
+                                              lambda: np.pad(np.arange(5), 9, mode="reflect")),
+    "nearest resize index": (lambda dev: timg._nearest_index(90, 720, dev),
+                             lambda: _nearest_from_jax(90, 720)),
+    "nearest resize index, downsampling": (lambda dev: timg._nearest_index(720, 90, dev),
+                                           lambda: _nearest_from_jax(720, 90)),
+    "linear resize index": (lambda dev: timg._linear_taps_on(360, 45, dev)[0],
+                            lambda: timg._linear_taps(360, 45)[0].T),
+    "linear resize weight": (lambda dev: timg._linear_taps_on(45, 360, dev)[1],
+                             lambda: timg._linear_taps(45, 360)[1].T),
+    "backscatter start": (tform.backscatter_start,
+                          lambda: np.concatenate([tform.B_DEFAULT, tform.BETA_B_DEFAULT,
+                                                  tform.JP_DEFAULT, tform.BETA_DP_DEFAULT])),
+    "attenuation guesses": (tform.beta_guesses,
+                            lambda: np.stack([tform.BETA_GUESS_1, tform.BETA_GUESS_2])),
+}
+
+
+@pytest.mark.parametrize("name", list(DEVICE_CONSTANTS))
+def test_device_constants_are_cached_per_device(name):
+    """Each constant is built once per device and cached there: a caller
+    gets it on its own device (another device's copy first does not leak to
+    it), with the uncached value, and the same tensor on every call."""
+    get, want = DEVICE_CONSTANTS[name]
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    other = get(meta)
+    assert other.device == meta
+    t = get(cpu)
+    assert t.device == cpu
+    np.testing.assert_array_equal(t.numpy(), want())
+    assert t.dtype == torch.from_numpy(np.asarray(want())).dtype
+    assert get(cpu) is t and get(meta) is other
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_improve_threshold_equals_the_tensor_product(dtype):
+    """improve_factor * cost(0) with the factor as a Python float equals the
+    product with the factor as a 0-d tensor of the volume's dtype, bit for
+    bit (the factor so rounded is exact in float32)."""
+    from ocean_perception_tpu_torch.stereo import patchmatch as tpm
+
+    C = torch.from_numpy(_img(11, (24, 40, 8)) * 3.0).to(dtype)
+    p = tpm.PatchMatchParams(max_disp=8)
+    want = torch.tensor(p.improve_factor, dtype=dtype) * C[..., 0]
+    got = tpm._improve_threshold(C, p)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_sgm_step_pads_with_1e9():
+    """The SGM recurrence's neighbours past either end of D are 1e9, as a
+    concatenated constant gives them."""
+    from ocean_perception_tpu_torch.stereo import sgm as tsgm
+
+    prev = torch.from_numpy(_img(12, (2, 5, 7, 9)))
+    c_row = torch.from_numpy(_img(13, (2, 5, 7, 9)))
+    big = torch.full(prev[..., :1].shape, 1e9)
+    prev_min = prev.amin(dim=-1, keepdim=True)
+    up = torch.cat([big, prev[..., :-1]], dim=-1)
+    down = torch.cat([prev[..., 1:], big], dim=-1)
+    best = torch.minimum(torch.minimum(prev, torch.minimum(up, down) + 0.06), prev_min + 0.5)
+    assert torch.equal(tsgm._sgm_step(prev, c_row, 0.06, 0.5), c_row + best - prev_min)

@@ -11,6 +11,8 @@ JAX, so on a GPU machine without JAX they run with
 import os
 import subprocess
 import sys
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +26,9 @@ from ocean_perception_tpu_torch.stereo import patchmatch as tpm
 from ocean_perception_tpu_torch.tracking import lk as tlk
 
 REPO = Path(__file__).resolve().parent.parent
+# Host syncs a full_frontend_step frame keeps (PERF.md, section 5): the
+# mesher half's, each named there by file and line.
+FRONTEND_SYNCS = 0
 
 
 def _run(code_or_args, cwd, timeout=300):
@@ -380,3 +385,82 @@ def test_frontend_gpu_matches_cpu(cuda_device):
         assert torch.equal(g.mesher.labels.cpu(), c.mesher.labels)
         assert torch.equal(g.tracker_state.table.ids.cpu(), c.tracker_state.table.ids)
         assert torch.allclose(g.mesher.pixels.cpu(), c.mesher.pixels, atol=1e-3)
+
+
+def sync_sites(fn) -> list:
+    """One entry per host sync made by fn(), as torch.cuda.set_sync_debug_mode
+    reports it: the port's frames of the Python stack at the sync, innermost
+    first."""
+    sites = []
+
+    def record(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            # The port's frames, or else the innermost three of any file.
+            frames = [f for f in stack if "ocean_perception_tpu_torch" in f.filename] or stack[-3:]
+            sites.append(" <- ".join(f"{Path(f.filename).name}:{f.lineno}" for f in frames[::-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strips", [False, True])
+def test_perception_step_makes_no_host_sync(cuda_device, strips):
+    """A perception_step frame, enhancement on, on either volume layout,
+    reads nothing back to the host and copies nothing from it once its
+    constants are on the card."""
+    from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
+    from ocean_perception_tpu_torch.models.perception import PerceptionConfig, perception_step
+
+    H, W = 64, 96
+    canvas = np.random.default_rng(45).random((H, W + 8)).astype(np.float32)
+    left = torch.from_numpy(np.repeat(canvas[:, :W, None], 3, 2)).to(cuda_device)
+    right = torch.from_numpy(np.repeat(canvas[:, 8:8 + W, None], 3, 2)).to(cuda_device)
+    cam = PinholeCamera.create(100.0, 100.0, W / 2, H / 2, H, W)
+    rig = StereoCamera.create(cam, cam, 0.1)
+    config = PerceptionConfig(max_disp=32, internal_scale=2, chunks=4, use_strip_volumes=strips)
+    perception_step(left, right, rig, config, device=cuda_device)  # puts the constants there
+    torch.cuda.synchronize()
+    assert sync_sites(lambda: perception_step(left, right, rig, config, device=cuda_device)) == []
+
+
+@pytest.mark.gpu
+def test_frontend_host_syncs(cuda_device):
+    """full_frontend_step keeps FRONTEND_SYNCS host syncs a frame."""
+    setup = _frontend_setup(cuda_device)
+    _run_frontend(setup)  # puts the constants there
+    torch.cuda.synchronize()
+    sites = sync_sites(lambda: _run_frontend(setup))
+    assert len(sites) == 3 * FRONTEND_SYNCS, sites
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,W,D", [
+    (37, 61, 13),   # no side a multiple of 8 or of a tile: every store scalar
+    (40, 72, 13),   # rows of both strip layouts 16-byte aligned, D odd
+    (44, 60, 24),   # H and W not multiples of 8: the strip layouts' rows unaligned
+    (9, 200, 70),   # D past one block's disparities and not a multiple of 8
+    (48, 60, 16),   # V_row rows aligned, V_col rows not
+    (36, 64, 8),    # V_col rows aligned, V_row rows not
+])
+def test_cost_kernels_on_ragged_shapes(cuda_device, dtype, H, W, D):
+    """cost_volume and build_volumes against their twins on shapes that
+    break the 16-byte vector paths and the tiles."""
+    l, r, _ = _stereo_inputs(cuda_device, H, W, D)
+    gl, gr = gradient_magnitude(l), gradient_magnitude(r)
+    plain = tcost.cost_volume_plain(l, r, D, 0.9, gl, gr, dtype)
+    assert torch.equal(tcost.cost_volume(l, r, D, 0.9, gl, gr, dtype=dtype), plain)
+    g = tcost.strip_geometry(H, W, D, 16, None)
+    ours = tcost.build_strip_volumes(l, r, gl, gr, D, 0.9, 16, None, dtype)
+    for a, b in zip(ours, tcost.strips_from_volume(plain, g)):
+        assert a.shape == b.shape and torch.equal(a, b)
+    torch.cuda.synchronize()
