@@ -28,15 +28,22 @@ disparity and motion, in phases:
    ``estimate_disparity`` at the perception step's half resolution, then
    upsampled as the step does): ms/frame, accuracy, and one frame each
    against the CPU;
-9. the two LK kernels against their twins at the 720p shapes of
-   ``full_frontend_step`` (K=200 slots, a 4-frame ring, 4 levels, forward
-   and backward; bit-identical), with their times;
+9. the LK kernel ``lk_track`` (every level of one direction in one launch)
+   against its twin on one ``full_frontend_step`` frame's recorded inputs at
+   720p (K=200 slots, a 4-frame ring, 4 levels, window 21, forward and
+   backward; bit-identical), with its times, its bound and chain of
+   dependent operations, and the Gauss-Newton steps the points take on
+   each level;
 10. ``full_frontend_step`` end to end (tracker with the pyramid ring, stripe
    matcher, landmark graph) over 8 frames of a sequence that moves -2 px a
    frame with an 8 px stereo disparity: launch counts, finite outputs, the
    track error against the known motion, the stripe disparities, ms/frame,
    the tracker's share, host syncs per frame (at most FRONTEND_SYNCS, each
-   printed with its place in the port) and the stage times;
+   printed with its place in the port) and the stage times; then the whole
+   step captured in one CUDA graph and replayed over the same 8 frames, its
+   outputs fed back as the next frame's state (ms/frame beside the call
+   path's; the first and last frames' labels, slot ids and pixels equal to
+   the call path's) and LK's share of its device time;
 11. the same frontend frame through the port on the CPU, against the card.
 
 A kernel's times, at each call shape of its path: its device time two ways,
@@ -103,7 +110,7 @@ FRONTEND_SYNCS = 0
 PER_FRAME = {"cost_volume": 1, "pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}
 PER_STRIP_FRAME = {"build_volumes": 1, "pm_refresh_strip": 3, "pm_propagate_strip": 12,
                    "pm_mask_background_strip": 1}
-PER_FRONTEND_FRAME = dict(PER_FRAME, lk_prep=8, lk_walk=8)  # 4 levels x forward/backward
+PER_FRONTEND_FRAME = dict(PER_FRAME, lk_track=2)  # forward and backward, 4 levels each
 SHIFT = 2  # frontend sequence: features move -SHIFT px a frame
 PM_CU = "ocean_perception_tpu_torch/csrc/patchmatch.cu"
 SOURCES = {
@@ -117,15 +124,22 @@ SOURCES = {
     "pm_refresh_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
     "pm_propagate_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
     "pm_mask_background_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
-    "lk_prep": ("ocean_perception_tpu_torch/csrc/lk.cu",
-                "ocean_perception_tpu/ops/pallas/lk_prep.py:291"),
-    "lk_walk": ("ocean_perception_tpu_torch/csrc/lk.cu",
-                "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
+    "lk_track": ("ocean_perception_tpu_torch/csrc/lk.cu",
+                 "ocean_perception_tpu/ops/pallas/lk_prep.py:291 and "
+                 "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
 }
 # H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 rate outside
 # the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# A float32 add's latency on Hopper, in cycles, and the H100 SXM's boost
+# clock: the time floor of a chain of dependent operations.
+OP_CYCLES, CLOCK_HZ = 4, 1.98e9
+# Dependent operations in one step of lk_track's walk (csrc/lk.cu, walk):
+# the position to the offsets (3), floor and the tap's address (3), the
+# shared load, two-tap products and sums over x then y (4), the residual
+# (1), the 2x2 step (2) and the new position (1).
+LK_STEP_CHAIN = 15
 PASSES = pm.PASSES  # R+ C+ R- C-
 
 
@@ -168,7 +182,7 @@ def call_ms(fn, n: int = N_TIMED) -> float:
 
 
 KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_refresh|pm_propagate|pm_mask_background"
-                       r"|lk_prep|lk_walk)(?:_rows|_cols)?_kernel")
+                       r"|lk_track)(?:_rows|_cols)?_kernel")
 
 
 def launch_name(kernel: str) -> str | None:
@@ -810,97 +824,102 @@ def phase_engines(left_rgb, right_rgb, rig) -> dict:
     return results
 
 
-def lk_bounds(calls: list) -> dict:
-    """Bounds of one frame's 8 lk_prep and 8 lk_walk launches, per launch.
-    lk_prep: for each point, the two ST^2 and ws^2 windows read and the
-    (2, A, A) surfaces and 8 scalars written; its operations are the
-    recentring products, the 5 window sums and the 2*A*A surface sums of
-    win^2 multiply-adds. lk_walk: corr, scal and pos0 read, pos and hit
-    written; at most max_iters steps of 2*A*A multiply-adds a point, which
-    never outweighs its bytes, so it is bytes-bound whatever the data."""
-    prep, walk = [], []
-    for name, args, kwargs, _ in calls:
-        if name == "lk_prep":
-            K, win, slack = args[2].shape[0], kwargs["win"], kwargs["slack"]
-            ST, ws, P = win + 3, win + 2 * (slack + 1), win + 2
-            A = ws - win + 1
-            nbytes = K * (4 * (ST * ST + ws * ws) + 4 * 6 + 4 * (2 * A * A + 8) + 1)
-            flops = K * 2 * (P * ST * ST + P * P * ST + 5 * win * win + 2 * A * A * win * win)
-            prep.append(bound(nbytes, flops))
-        else:
-            corr, scal, pos0 = args[:3]
-            K = corr.shape[0]
-            nbytes = 4 * (corr.numel() + scal.numel() + 2 * pos0.numel()) + K
-            walk.append(bound(nbytes))
-    return {name: dict(bound_ms=statistics.mean(b["bound_ms"] for b in rows),
-                       bound_by=rows[0]["bound_by"])
-            for name, rows in (("lk_prep", prep), ("lk_walk", walk))}
+def lk_bounds(call, steps: list) -> dict:
+    """Bound of one lk_track launch (one direction, every level), from its
+    recorded arguments and the steps each point took on each level (steps:
+    (level, (K,) steps) from lk_track_plain). Bytes: each point's template
+    and slack windows a level read, its point, guess and frame indices read,
+    its point and status written. Operations (a multiply-add counted as
+    two): the two-tap recentring, the gradients, the 5 window sums, the
+    2*A*A surface sums of win^2 multiply-adds, and the walk's steps. Its
+    chain of dependent operations: the coarsest level's window sums (row,
+    then column), then on every level the win^2-long sum of a surface value
+    and the most steps any point took times LK_STEP_CHAIN; the levels follow
+    one another, since each slack window sits at the coarser level's guess."""
+    (tmpl_levels, _, points, *_), kwargs = call[1], call[2]
+    K, slack, wins = points.shape[0], kwargs["slack"], kwargs["wins"]
+    taken = dict(steps)
+    nbytes, flops, chain = K * (4 * 2 * 2 + 4 * 2 + 4 * 2 + 1), 0, 0
+    for lvl in range(len(tmpl_levels) - 1, -1, -1):
+        win = wins[lvl]
+        if win is None:
+            continue
+        ST, P, ws = win + 3, win + 2, win + 2 * (slack + 1)
+        A = ws - win + 1
+        nbytes += K * 4 * (ST * ST + ws * ws)
+        flops += K * (3 * P * ST + 3 * P * P + 4 * win * win + 5 * 2 * win * win
+                      + 2 * A * A * 2 * win * win + 20)
+        flops += int(taken[lvl].sum()) * 50  # a step's tents, lookups, solve and test
+        chain += (2 * win if chain == 0 else 0) + win * win
+        chain += int(taken[lvl].max()) * LK_STEP_CHAIN
+    return dict(**bound(nbytes, flops), chain_ops=chain,
+                chain_ms=1e3 * chain * OP_CYCLES / CLOCK_HZ)
 
 
 def record_lk_calls(fn) -> list:
-    """Run fn() and return, for every lk_prep and lk_walk call it made in
-    order, (name, args, kwargs, launch): the dispatcher's arguments, the exact
-    inputs the main path gives the two kernels, for the plain twin; and the
-    arguments the dispatcher handed its kernel wrapper, to time the kernel
-    alone."""
-    names = ("lk_prep", "lk_walk")
+    """Run fn() and return, for every lk_track call it made in order, (name,
+    args, kwargs, launch): the dispatcher's arguments, the exact inputs the
+    main path gives the kernel, for the plain twin; and the arguments the
+    dispatcher handed the kernel's wrapper, to time the kernel alone."""
     calls, launches = [], []
-    orig = {name: getattr(lk, name) for name in names}
-    wrappers = {name: getattr(cuda, name) for name in names}
+    orig, wrapper = lk.lk_track, cuda.lk_track
 
-    def spy(name):
-        def call(*args, **kwargs):
-            calls.append((name, args, kwargs))
-            return orig[name](*args, **kwargs)
-        return call
+    def spy(*args, **kwargs):
+        calls.append(("lk_track", args, kwargs))
+        return orig(*args, **kwargs)
 
-    def spy_wrapper(name):
-        def call(*args):
-            launches.append(args)
-            return wrappers[name](*args)
-        return call
+    def spy_wrapper(*args):
+        launches.append(args)
+        return wrapper(*args)
 
     try:
-        for name in names:
-            setattr(lk, name, spy(name))
-            setattr(cuda, name, spy_wrapper(name))
+        lk.lk_track, cuda.lk_track = spy, spy_wrapper
         fn()
     finally:
-        for name in names:
-            setattr(lk, name, orig[name])
-            setattr(cuda, name, wrappers[name])
+        lk.lk_track, cuda.lk_track = orig, wrapper
     if len(launches) != len(calls):
         raise AssertionError(f"{len(calls)} LK calls launched {len(launches)} kernels")
     return [(*call, launch) for call, launch in zip(calls, launches)]
 
 
 def phase_lk_kernels(calls: list) -> dict:
-    """lk_prep and lk_walk against their twins on one frontend frame's
-    recorded inputs (4 levels, forward then backward): bit-identical; then
-    each call's times, averaged over the frame's 8 launches of each."""
-    plain = {"lk_prep": lk.lk_prep_plain, "lk_walk": lk.lk_walk_plain}
-    kernel = {"lk_prep": lk.lk_prep, "lk_walk": lk.lk_walk}
-    errs, times = {name: 0.0 for name in plain}, {name: [] for name in plain}
-    if [c[0] for c in calls] != ["lk_prep", "lk_walk"] * 8:
-        raise AssertionError(f"expected 8 prep/walk pairs, got {[c[0] for c in calls]}")
-    for i, (name, args, kwargs, launch) in enumerate(calls):
-        got = kernel[name](*args, **kwargs)
-        want = plain[name](*args, **kwargs)
+    """lk_track against its twin on one frontend frame's recorded inputs (4
+    levels, forward then backward): bit-identical; then each direction's
+    times, bound and chain, and the Gauss-Newton steps the points took on
+    each level (from the twin)."""
+    if [c[0] for c in calls] != ["lk_track"] * 2:
+        raise AssertionError(f"expected a forward and a backward lk_track, got {[c[0] for c in calls]}")
+    err, times, bounds = 0.0, [], []
+    for direction, (name, args, kwargs, launch) in zip(("forward", "backward"), calls):
+        got = lk.lk_track(*args, **kwargs)
+        steps = []
+        want = lk.lk_track_plain(*args, **kwargs, steps=steps)
         for a, b in zip(got, want):
             fa, fb = a.float().nan_to_num(-1e30), b.float().nan_to_num(-1e30)
-            require_equal(f"{name} call {i}", fa, fb)
-            errs[name] = max(errs[name], max_abs(fa, fb))
-        times[name].append(measure(name, lambda: getattr(cuda, name)(*launch),
-                                   lambda: plain[name](*args, **kwargs), 5))
-        shape = "x".join(str(d) for d in args[0].shape)
-        print(f"[lk] {name} call {i} ({shape}): {times_line(times[name][-1])}")
-    bounds = lk_bounds(calls)
-    rows = {}
-    for name in plain:
-        rows[name] = row = dict(max_abs_err=errs[name], **summarize(times[name]), **bounds[name])
-        print(f"[lk] {name}, a launch (mean of 8): {times_line(row)}; bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max |diff| {row['max_abs_err']}")
-    return rows
+            require_equal(f"lk_track {direction}", fa, fb)
+            err = max(err, max_abs(fa, fb))
+        for lvl, moved in steps:
+            print(f"[lk] {direction} level {lvl} (window {kwargs['wins'][lvl]}): Gauss-Newton "
+                  f"steps mean {moved.float().mean().item():.3f}, max {int(moved.max())} "
+                  f"over {moved.numel()} points")
+        times.append(measure("lk_track", lambda: cuda.lk_track(*launch),
+                             lambda: lk.lk_track_plain(*args, **kwargs), 5))
+        bounds.append(lk_bounds((name, args, kwargs), steps))
+        b = bounds[-1]
+        print(f"[lk] lk_track {direction} ({len(args[0])} levels, K={args[2].shape[0]}): "
+              f"{times_line(times[-1])}; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), chain of "
+              f"{b['chain_ops']} dependent operations ({b['chain_ms']:.5f} ms at {OP_CYCLES} "
+              f"cycles an operation, {CLOCK_HZ / 1e9:.2f} GHz)")
+    row = dict(max_abs_err=err, **summarize(times),
+               bound_ms=statistics.mean(b["bound_ms"] for b in bounds),
+               bound_by=bounds[0]["bound_by"],
+               chain_ops=statistics.mean(b["chain_ops"] for b in bounds),
+               chain_ms=statistics.mean(b["chain_ms"] for b in bounds))
+    print(f"[lk] lk_track, a launch (mean of the 2): {times_line(row)}; bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), chain {row['chain_ms']:.5f} ms, "
+          f"max |diff| {row['max_abs_err']}; a frame's LK: 2 launches, "
+          f"{2 * row['device_ms'] * 1e3:.3f} us of device time")
+    return {"lk_track": row}
 
 
 def sync_sites(fn) -> list:
@@ -961,6 +980,7 @@ def phase_frontend(canvas, rig, config, dev) -> dict:
     torch.cuda.synchronize()
 
     cuda.reset_launches()
+    start_state = (state, graph, prev)
     before, outs = [state], []
     digest = torch.zeros((), device=dev, dtype=torch.float64)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1019,7 +1039,91 @@ def phase_frontend(canvas, rig, config, dev) -> dict:
                              f"{FRONTEND_SYNCS} PERF.md names")
     return dict(launches=launches, calls=calls, ms_frame=ms_frame, frames=frames, params=params,
                 state=before[-2], graph=outs[-2].graph, prev=to_grayscale(frames[4 + N_FRAMES - 1][0]),
-                out=outs[-1])
+                out=outs[-1], start=start_state, first=outs[0])
+
+
+def _map_tensors(fn, obj):
+    """obj (a dataclass, tuple or tensor, nested) with fn applied to every tensor."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _map_tensors(fn, getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(_map_tensors(fn, o) for o in obj)
+    raise TypeError(f"not a tensor tree: {type(obj)}")
+
+
+def _tensors(obj) -> list:
+    out = []
+    _map_tensors(out.append, obj)
+    return out
+
+
+def phase_frontend_graph(fe, rig, config, lk_device_ms: float) -> float:
+    """full_frontend_step captured whole in one CUDA graph, with static
+    state, graph, previous-gray and image inputs, then replayed over the
+    timed frames of phase_frontend from the same start: after each replay
+    the outputs' tracker state, landmark graph and gray image are copied
+    into the static inputs, and every output is consumed as there. The
+    first and the last frames' labels, slot ids and pixels must equal the
+    call path's. Returns the replay's ms/frame."""
+    state0, graph0, prev0 = fe["start"]
+    frames = fe["frames"][5:5 + N_FRAMES]
+    dev = prev0.device
+    st, gr, prev = (_map_tensors(torch.clone, x) for x in (state0, graph0, prev0))
+    left, right = (t.clone() for t in frames[0])
+
+    def step():
+        return full_frontend_step(st, gr, prev, left, right, rig, config, fe["params"], device=dev)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, gray = step()
+
+    def load(state, lmk_graph, prev_gray, frame):
+        for dst, src in zip(_tensors((st, gr, prev, left, right)),
+                            _tensors((state, lmk_graph, prev_gray, *frame))):
+            dst.copy_(src)
+
+    def require_frame(tag, call_out):
+        for field, a, b in (("labels", out.mesher.labels, call_out.mesher.labels),
+                            ("slot ids", out.tracker_state.table.ids, call_out.tracker_state.table.ids),
+                            ("pixels", out.tracker_state.table.pixels,
+                             call_out.tracker_state.table.pixels)):
+            require_equal(f"frontend graph {tag} {field} vs the call path's", a, b)
+
+    load(state0, graph0, prev0, frames[0])
+    graph.replay()
+    require_frame("frame 0", fe["first"])
+    load(state0, graph0, prev0, frames[0])
+    digest = torch.zeros((), device=dev, dtype=torch.float64)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i, frame in enumerate(frames):
+        if i:
+            load(out.tracker_state, out.graph, gray, frame)
+        graph.replay()
+        m = out.mesher
+        digest += (out.perception.disparity.sum() + out.perception.enhanced_left.sum()
+                   + m.disparities.sum() + m.labels.sum() + m.sizes.sum())
+    end.record()
+    end.synchronize()
+    ms_frame = start.elapsed_time(end) / N_FRAMES
+    require_frame(f"frame {N_FRAMES - 1}", fe["out"])
+    print(f"[frontend graph] one CUDA graph a frame, {N_FRAMES} frames: {ms_frame:.3f} ms/frame "
+          f"({1000.0 / ms_frame:.1f} fps) against {fe['ms_frame']:.3f} ms/frame by calls; digest "
+          f"{float(digest):.6e}; the first and last frames' labels, slot ids and pixels equal to "
+          f"the call path's; LK (2 lk_track launches, {1e3 * lk_device_ms:.3f} us) "
+          f"{100.0 * lk_device_ms / ms_frame:.2f}% of the frame")
+    return ms_frame
 
 
 def phase_frontend_stage_times(fe, rig, config) -> None:
@@ -1124,6 +1228,7 @@ def main() -> int:
 
     fe = phase_frontend(canvas, rig, config, dev)
     rows.update(phase_lk_kernels(fe["calls"]))
+    phase_frontend_graph(fe, rig, config, 2 * rows["lk_track"]["device_ms"])
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
 
@@ -1131,7 +1236,7 @@ def main() -> int:
     # from perception_step, the strip kernels' from perception_step with
     # strip volumes, LK's from full_frontend_step.
     launches.update({k: strip_launches[k] for k in PER_STRIP_FRAME})
-    launches.update({k: fe["launches"][k] for k in ("lk_prep", "lk_walk")})
+    launches["lk_track"] = fe["launches"]["lk_track"]
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=launches[k], library_ms=None, **rows[k])

@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"cost_volume": 0, "pm_refresh": 0, "pm_propagate": 0, "pm_mask_background": 0,
             "build_volumes": 0, "pm_refresh_strip": 0, "pm_propagate_strip": 0,
-            "pm_mask_background_strip": 0, "lk_prep": 0, "lk_walk": 0}
+            "pm_mask_background_strip": 0, "lk_track": 0}
 
 
 def reset_launches() -> None:
@@ -117,9 +117,25 @@ _SIGNATURES = {
     "opt_pm_refresh_strip": [_P, _P, _P, _F, _P, _P] + [_I] * 6 + [_P],
     "opt_pm_propagate_strip": [_P] * 5 + [_I] * 9 + [_P],
     "opt_pm_mask_background_strip": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
-    "opt_lk_prep": [_P] * 9 + [_I] * 8 + [_F, _P],
-    "opt_lk_walk": [_P] * 5 + [_I] * 6 + [_F, _P],
 }
+
+
+class _LKLevel(ctypes.Structure):
+    _fields_ = [("tmpl", _P), ("srch", _P), ("Rt", _I), ("Rs", _I), ("H", _I), ("W", _I),
+                ("win", _I)]
+
+
+LK_MAX_LEVELS = 8
+
+
+class _LKTrack(ctypes.Structure):
+    """csrc/lk.cu's LkTrack, field for field."""
+    _fields_ = [("lv", _LKLevel * LK_MAX_LEVELS), ("pts", _P), ("init", _P), ("src_t", _P),
+                ("src_s", _P), ("out_pts", _P), ("status", _P), ("levels", _I), ("K", _I),
+                ("slack", _I), ("pad", _I), ("max_iters", _I), ("min_eig", _F), ("eps2", _F)]
+
+
+_SIGNATURES["opt_lk_track"] = [ctypes.POINTER(_LKTrack), _P]
 
 
 @functools.lru_cache(maxsize=1)
@@ -323,54 +339,45 @@ def pm_mask_background_strip(V_col, disp, improve_factor: float, patch_radius: i
     return out
 
 
-def lk_prep(tmpl, srch, pts, guess, src_t, src_s, win: int, slack: int, pad: int,
-            min_eig: float):
-    """One LK level's prep for K points (csrc/lk.cu): returns corr (K, 2, A, A),
-    scal (K, 8) and the template gate okg (K,) bool; see tracking/lk.py."""
-    _require(tmpl, "tmpl", (torch.float32,))
-    _require(srch, "srch", (torch.float32,))
-    if tmpl.ndim != 3 or srch.ndim != 3 or tmpl.shape[1:] != srch.shape[1:]:
-        raise ValueError(f"tmpl and srch must be (R, H, W) rings of one level, got "
-                         f"{tuple(tmpl.shape)} and {tuple(srch.shape)}")
+def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int, pad: int,
+             min_eig: float, max_iters: int, eps2: float):
+    """Every level of one LK direction for K points, one launch (csrc/lk.cu):
+    returns the points (K, 2) and the status (K,) bool; see
+    tracking/lk.py::lk_track_plain. Level l is the (R, H, W) rings
+    tmpl_levels[l] and srch_levels[l], walked with window wins[l] (0 skips
+    it). With K = 0 nothing is launched."""
+    levels = len(tmpl_levels)
+    if not 1 <= levels <= LK_MAX_LEVELS or len(srch_levels) != levels or len(wins) != levels:
+        raise ValueError(f"need 1..{LK_MAX_LEVELS} levels of templates, search images and "
+                         f"windows, got {levels}, {len(srch_levels)} and {len(wins)}")
+    for l, (tmpl, srch) in enumerate(zip(tmpl_levels, srch_levels)):
+        _require(tmpl, f"tmpl_levels[{l}]", (torch.float32,))
+        _require(srch, f"srch_levels[{l}]", (torch.float32,))
+        if tmpl.ndim != 3 or srch.ndim != 3 or tmpl.shape[1:] != srch.shape[1:]:
+            raise ValueError(f"level {l}: templates and search images must be (R, H, W) rings "
+                             f"of one size, got {tuple(tmpl.shape)} and {tuple(srch.shape)}")
     K = pts.shape[0]
-    for name, t in (("pts", pts), ("guess", guess)):
+    for name, t in (("pts", pts), ("init", init)):
         _require(t, name, (torch.float32,), (K, 2))
     for name, t in (("src_t", src_t), ("src_s", src_s)):
         _require(t, name, (torch.int32,), (K,))
-    if win < 1 or win % 2 == 0 or slack < 1:
-        raise ValueError(f"need an odd window and slack >= 1, got win={win} slack={slack}")
-    A = 2 * slack + 3
-    corr = torch.empty((K, 2, A, A), dtype=torch.float32, device=tmpl.device)
-    scal = torch.empty((K, 8), dtype=torch.float32, device=tmpl.device)
-    okg = torch.empty((K,), dtype=torch.bool, device=tmpl.device)
-    R_t, H, W = tmpl.shape
-    with torch.cuda.device(tmpl.device):
-        err = library().opt_lk_prep(
-            tmpl.data_ptr(), srch.data_ptr(), pts.data_ptr(), guess.data_ptr(),
-            src_t.data_ptr(), src_s.data_ptr(), corr.data_ptr(), scal.data_ptr(),
-            okg.data_ptr(), R_t, srch.shape[0], H, W, K, win, slack, pad, min_eig,
-            _stream(tmpl))
-    _check(err, "lk_prep")
-    LAUNCHES["lk_prep"] += 1
-    return corr, scal, okg
-
-
-def lk_walk(corr, scal, pos0, r: int, ws: int, pad: int, max_iters: int, eps2: float):
-    """One LK level's Gauss-Newton walk for K points (csrc/lk.cu): returns
-    pos (K, 2) and hit (K,) bool; see tracking/lk.py."""
-    K = corr.shape[0]
-    A = corr.shape[-1]
-    _require(corr, "corr", (torch.float32,), (K, 2, A, A))
-    _require(scal, "scal", (torch.float32,), (K, 8))
-    _require(pos0, "pos0", (torch.float32,), (K, 2))
-    if A > 32:
-        raise ValueError(f"surfaces wider than 32 offsets (got {A}) are not supported")
-    pos = torch.empty_like(pos0)
-    hit = torch.empty((K,), dtype=torch.bool, device=corr.device)
-    with torch.cuda.device(corr.device):
-        err = library().opt_lk_walk(
-            corr.data_ptr(), scal.data_ptr(), pos0.data_ptr(), pos.data_ptr(), hit.data_ptr(),
-            K, A, r, ws, pad, max_iters, eps2, _stream(corr))
-    _check(err, "lk_walk")
-    LAUNCHES["lk_walk"] += 1
-    return pos, hit
+    if any(w != 0 and (w < 3 or w % 2 == 0) for w in wins):
+        raise ValueError(f"windows must be odd and >= 3 (0 skips a level), got {list(wins)}")
+    if slack < 1 or 2 * slack + 3 > 32:
+        raise ValueError(f"need 1 <= slack <= 14, got {slack}")
+    out = torch.empty((K, 2), dtype=torch.float32, device=pts.device)
+    status = torch.empty((K,), dtype=torch.bool, device=pts.device)
+    if K == 0:
+        return out, status
+    args = _LKTrack(pts=pts.data_ptr(), init=init.data_ptr(), src_t=src_t.data_ptr(),
+                    src_s=src_s.data_ptr(), out_pts=out.data_ptr(), status=status.data_ptr(),
+                    levels=levels, K=K, slack=slack, pad=pad, max_iters=max_iters,
+                    min_eig=min_eig, eps2=eps2)
+    for l, (tmpl, srch, win) in enumerate(zip(tmpl_levels, srch_levels, wins)):
+        args.lv[l] = _LKLevel(tmpl.data_ptr(), srch.data_ptr(), tmpl.shape[0], srch.shape[0],
+                              tmpl.shape[1], tmpl.shape[2], win)
+    with torch.cuda.device(pts.device):
+        err = library().opt_lk_track(ctypes.byref(args), _stream(pts))
+    _check(err, "lk_track")
+    LAUNCHES["lk_track"] += 1
+    return out, status

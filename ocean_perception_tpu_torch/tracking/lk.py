@@ -9,20 +9,24 @@ The port has one LK path, the one the TPU's fused kernel pair computes
 (``ops/pallas/lk_prep.py`` + ``ops/pallas/lk_iterate.py``). Per pyramid level
 and direction, for all K points:
 
-- :func:`lk_prep` fetches each point's (win+3)^2 template window and its
+- the prep (K5) fetches each point's (win+3)^2 template window and its
   slack window (win + 2*(slack+1))^2 from the level, or from the point's
   frame of a ring of levels; recentres the template on its subpixel position
   with two-tap tents (y, then x); takes central-difference gradients; inverts
   the 2x2 normal matrix and applies the min-eigenvalue gate; and builds the
   correlation surfaces S_g(a, b) = <swin[a:a+win, b:b+win], g>, whose
-  bilinear lookups are the Gauss-Newton step's two scalars.
-- :func:`lk_walk` runs ``max_iters`` masked Gauss-Newton steps on those
-  surfaces; a point that leaves its slack window stops and fails the level.
+  bilinear lookups are the Gauss-Newton step's two scalars;
+- the walk (K6) runs ``max_iters`` masked Gauss-Newton steps on those
+  surfaces; a point that leaves its slack window stops and fails the level;
+- the level update keeps the walk's position where the point passed every
+  gate, and doubles the guess for the next finer level.
 
-Each has a plain PyTorch twin (``*_plain``) that spells every reduction out
-as a loop of elementwise ops in the kernel's order, so that on the card the
-CUDA kernel (``csrc/lk.cu``) and its twin agree bit for bit. A CPU tensor
-runs the twin; a CUDA tensor runs the kernel.
+:func:`lk_track` runs every level of one direction, coarse to fine. On a
+CUDA tensor that is one launch of the ``lk_track`` kernel (``csrc/lk.cu``),
+a block a point; on a CPU tensor it is :func:`lk_track_plain`, made of the
+plain twins :func:`lk_prep_plain` and :func:`lk_walk_plain`, which spell
+every reduction out as a loop of elementwise ops in the kernel's order, so
+that kernel and twins agree bit for bit.
 
 Levels are never padded: the reference edge-pads each level by
 ``pad = window//2 + 2``; here coordinates are those of the padded level and
@@ -105,10 +109,28 @@ def _tents(pos: torch.Tensor, n: int) -> torch.Tensor:
     return (1.0 - (pos[..., None] - a).abs()).clamp_min(0.0)
 
 
+def _recentre(twin: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+    """(K, P, P) template, P = ST - 1, recentred on its subpixel position
+    (fy, fx) inside the (K, ST, ST) window: tents over the rows (the y
+    contraction), then over the columns, each a sum over the whole axis."""
+    ST = twin.shape[-1]
+    P = ST - 1
+    i = torch.arange(P, dtype=torch.float32, device=twin.device)
+    wy = _tents(((fy[:, None] + i) - (P // 2)).clamp(0, ST - 1), ST)  # (K, P, ST)
+    wx = _tents(((fx[:, None] + i) - (P // 2)).clamp(0, ST - 1), ST)
+    t1 = torch.zeros_like(wy)
+    for a in range(ST):
+        t1 = t1 + wy[:, :, a:a + 1] * twin[:, a:a + 1, :]
+    t2 = torch.zeros_like(wy[:, :, :P])
+    for b in range(ST):
+        t2 = t2 + t1[:, :, b:b + 1] * wx[:, None, :, b]
+    return t2
+
+
 def lk_prep_plain(tmpl: torch.Tensor, srch: torch.Tensor, pts: torch.Tensor,
                   guess: torch.Tensor, src_t: torch.Tensor, src_s: torch.Tensor, *,
                   win: int, slack: int, pad: int, min_eig_threshold: float):
-    """Plain twin of the ``lk_prep`` kernel.
+    """Plain twin of the prep: one level, all K points.
 
     tmpl (Rt, H, W) and srch (Rs, H, W) are unpadded levels (rings allowed);
     pts and guess are (K, 2) [x, y] at the level's scale; src_t and src_s
@@ -137,17 +159,7 @@ def lk_prep_plain(tmpl: torch.Tensor, srch: torch.Tensor, pts: torch.Tensor,
     twin = extract_windows(tmpl, t0y, t0x, ST, src=st, pad=pad)   # (K, ST, ST)
     swin = extract_windows(srch, sy0, sx0, ws, src=ss, pad=pad)   # (K, ws, ws)
 
-    # Subpixel recentring of the (win+2)^2 template: y contraction, then x.
-    i = torch.arange(P, dtype=torch.float32, device=pts.device)
-    wy = _tents(((fy[:, None] + i) - (P // 2)).clamp(0, ST - 1), ST)  # (K, P, ST)
-    wx = _tents(((fx[:, None] + i) - (P // 2)).clamp(0, ST - 1), ST)
-    t1 = torch.zeros_like(wy)
-    for a in range(ST):
-        t1 = t1 + wy[:, :, a:a + 1] * twin[:, a:a + 1, :]
-    t2 = torch.zeros_like(wy[:, :, :P])
-    for b in range(ST):
-        t2 = t2 + t1[:, :, b:b + 1] * wx[:, None, :, b]
-
+    t2 = _recentre(twin, fy, fx)
     tpatch = t2[:, 1:P - 1, 1:P - 1]
     gx = 0.5 * (t2[:, 1:P - 1, 2:] - t2[:, 1:P - 1, :P - 2])
     gy = 0.5 * (t2[:, 2:, 1:P - 1] - t2[:, :P - 2, 1:P - 1])
@@ -180,16 +192,17 @@ def lk_prep_plain(tmpl: torch.Tensor, srch: torch.Tensor, pts: torch.Tensor,
     return corr, scal, okg
 
 
+def _require_cpu(t: torch.Tensor, name: str) -> None:
+    if t.is_cuda:
+        raise ValueError(f"{name} runs on the CPU; on the card the levels run fused in "
+                         "one lk_track launch")
+
+
 def lk_prep(tmpl, srch, pts, guess, src_t, src_s, *, win: int, slack: int, pad: int,
             min_eig_threshold: float):
-    """Per-level LK prep for all K points (TPU kernel K5,
-    ``ops/pallas/lk_prep.py::lk_prep_pallas``): ``csrc/lk.cu`` on a CUDA
-    tensor, :func:`lk_prep_plain` on a CPU one."""
-    if tmpl.is_cuda:
-        return cuda.lk_prep(tmpl.contiguous(), srch.contiguous(), pts.float().contiguous(),
-                            guess.float().contiguous(), src_t.int().contiguous(),
-                            src_s.int().contiguous(), win, slack, pad,
-                            _f32(min_eig_threshold))
+    """One level's prep (TPU kernel K5, ``ops/pallas/lk_prep.py::lk_prep_pallas``)
+    on CPU tensors: :func:`lk_prep_plain`."""
+    _require_cpu(tmpl, "lk_prep")
     return lk_prep_plain(tmpl, srch, pts.float(), guess.float(), src_t, src_s, win=win,
                          slack=slack, pad=pad, min_eig_threshold=min_eig_threshold)
 
@@ -197,21 +210,38 @@ def lk_prep(tmpl, srch, pts, guess, src_t, src_s, *, win: int, slack: int, pad: 
 # --- K6: the Gauss-Newton walk -----------------------------------------------
 
 
+def _surface_lookup(corr: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """(K, 2) bilinear lookups of the (K, 2, A, A) surfaces at (ry, rx): tents
+    over the x offsets, then over the y offsets, each a sum over the whole
+    axis."""
+    A = corr.shape[-1]
+    wy = _tents(ry, A)                                                # (K, A)
+    wx = _tents(rx, A)
+    t = torch.zeros_like(corr[:, :, :, 0])                            # (K, 2, A)
+    for b in range(A):
+        t = t + corr[:, :, :, b] * wx[:, None, b:b + 1]
+    acc = torch.zeros_like(t[:, :, 0])                                # (K, 2)
+    for a in range(A):
+        acc = acc + t[:, :, a] * wy[:, a:a + 1]
+    return acc
+
+
 def lk_walk_plain(corr: torch.Tensor, scal: torch.Tensor, pos0: torch.Tensor, *, r: int,
-                  ws: int, pad: int, max_iters: int, eps: float):
-    """Plain twin of the ``lk_walk`` kernel: ``max_iters`` masked steps.
+                  ws: int, pad: int, max_iters: int, eps: float, count_steps: bool = False):
+    """Plain twin of the walk: ``max_iters`` masked steps.
 
     Each step first tests that the patch still lies inside the slack window
     (else the point is hit and stops), then looks up the two residual
     scalars with tents over the surfaces (x offsets, then y), solves the
     2x2 step and marks the point converged once |step| < eps. A stopped
-    point keeps its position. Returns pos (K, 2) and hit (K,) bool.
+    point keeps its position. Returns pos (K, 2) and hit (K,) bool, and with
+    ``count_steps`` also the (K,) int32 count of steps each point moved.
     """
-    A = corr.shape[-1]
     tgx, tgy, i00, i01, i10, i11, sy0, sx0 = scal.unbind(1)
     px, py = pos0[:, 0], pos0[:, 1]
     conv = torch.zeros_like(px, dtype=torch.bool)
     hit = torch.zeros_like(conv)
+    steps = torch.zeros_like(px, dtype=torch.int32)
     lo, hi = r + 1, ws - r - 2
     eps2 = _f32(eps * eps)
     for _ in range(max_iters):
@@ -219,36 +249,89 @@ def lk_walk_plain(corr: torch.Tensor, scal: torch.Tensor, pos0: torch.Tensor, *,
         cx = (px + pad) - sx0
         hit = hit | ~((cy >= lo) & (cy <= hi) & (cx >= lo) & (cx <= hi))
         stop = conv | hit
-        wy = _tents(cy - r, A)                                        # (K, A)
-        wx = _tents(cx - r, A)
-        t = torch.zeros_like(corr[:, :, :, 0])                        # (K, 2, A)
-        for b in range(A):
-            t = t + corr[:, :, :, b] * wx[:, None, b:b + 1]
-        acc = torch.zeros_like(t[:, :, 0])                            # (K, 2)
-        for a in range(A):
-            acc = acc + t[:, :, a] * wy[:, a:a + 1]
+        acc = _surface_lookup(corr, cy - r, cx - r)
         bx = acc[:, 0] - tgx
         by = acc[:, 1] - tgy
         dx = -(i00 * bx + i01 * by)
         dy = -(i10 * bx + i11 * by)
         px = torch.where(stop, px, px + dx)
         py = torch.where(stop, py, py + dy)
+        steps = steps + (~stop).int()
         conv = stop | ((dx * dx + dy * dy) < eps2)
-    return torch.stack([px, py], dim=1), hit
+    pos = torch.stack([px, py], dim=1)
+    return (pos, hit, steps) if count_steps else (pos, hit)
 
 
 def lk_walk(corr, scal, pos0, *, r: int, ws: int, pad: int, max_iters: int, eps: float):
-    """The per-level walk for all K points (TPU kernel K6,
-    ``ops/pallas/lk_iterate.py::lk_iterate_lane_major``): ``csrc/lk.cu`` on a
-    CUDA tensor, :func:`lk_walk_plain` on a CPU one."""
-    if corr.is_cuda:
-        return cuda.lk_walk(corr.contiguous(), scal.contiguous(), pos0.float().contiguous(),
-                            r, ws, pad, max_iters, _f32(eps * eps))
+    """One level's walk (TPU kernel K6, ``ops/pallas/lk_iterate.py``) on CPU
+    tensors: :func:`lk_walk_plain`."""
+    _require_cpu(corr, "lk_walk")
     return lk_walk_plain(corr, scal, pos0.float(), r=r, ws=ws, pad=pad, max_iters=max_iters,
                          eps=eps)
 
 
 # --- coarse to fine ----------------------------------------------------------
+
+
+def lk_track_plain(tmpl_levels: Sequence[torch.Tensor], srch_levels: Sequence[torch.Tensor],
+                   points: torch.Tensor, init: torch.Tensor, src_t: torch.Tensor,
+                   src_s: torch.Tensor, *, wins: Sequence[Optional[int]], slack: int, pad: int,
+                   min_eig_threshold: float, max_iters: int, eps: float,
+                   steps: Optional[list] = None):
+    """Plain twin of the ``lk_track`` kernel: one direction, every level.
+
+    tmpl_levels and srch_levels hold one (R, H, W) ring a level, finest
+    first; points and init are (K, 2) [x, y] at level 0's scale; wins[l] is
+    level l's window, None where the level is skipped. Walks the levels
+    coarse to fine: prep, walk, then the level update (the walk's position
+    is kept where the template gate passed, the position lies inside the
+    level and is finite, and the point never left its slack window; the
+    guess doubles below every level but the finest). Returns the points
+    (K, 2) and the status (K,) bool, level 0's gate. ``steps``, where given,
+    gets one (level, (K,) int32 steps moved) entry a level walked.
+    """
+    levels = len(tmpl_levels)
+    points, guess = points.float(), init.float() / 2.0 ** (levels - 1)
+    ok = torch.zeros(points.shape[0], dtype=torch.bool, device=points.device)
+    for lvl in range(levels - 1, -1, -1):
+        win = wins[lvl]
+        if win is not None:
+            H, W = tmpl_levels[lvl].shape[-2], tmpl_levels[lvl].shape[-1]
+            corr, scal, ok_g = lk_prep_plain(
+                tmpl_levels[lvl], srch_levels[lvl], points / 2.0 ** lvl, guess, src_t, src_s,
+                win=win, slack=slack, pad=pad, min_eig_threshold=min_eig_threshold)
+            pos, hit, moved = lk_walk_plain(corr, scal, guess, r=win // 2,
+                                            ws=win + 2 * (slack + 1), pad=pad,
+                                            max_iters=max_iters, eps=eps, count_steps=True)
+            if steps is not None:
+                steps.append((lvl, moved))
+            in_img = ((pos[:, 0] >= 0) & (pos[:, 0] <= W - 1)
+                      & (pos[:, 1] >= 0) & (pos[:, 1] <= H - 1))
+            ok_l = ok_g & in_img & torch.isfinite(pos).all(dim=-1) & ~hit
+            guess = torch.where(ok_l[:, None], pos, guess)
+            if lvl == 0:
+                # OpenCV semantics: the status comes from the finest level.
+                ok = ok_l
+        if lvl > 0:
+            guess = guess * 2.0
+    return guess, ok
+
+
+def lk_track(tmpl_levels, srch_levels, points, init, src_t, src_s, *, wins, slack: int,
+             pad: int, min_eig_threshold: float, max_iters: int, eps: float):
+    """Every level of one LK direction for all K points (TPU kernels K5 and
+    K6): one ``lk_track`` launch (``csrc/lk.cu``) on a CUDA tensor,
+    :func:`lk_track_plain` on a CPU one. Returns (points, status)."""
+    if points.is_cuda:
+        return cuda.lk_track([t.contiguous() for t in tmpl_levels],
+                             [t.contiguous() for t in srch_levels],
+                             points.float().contiguous(), init.float().contiguous(),
+                             src_t.int().contiguous(), src_s.int().contiguous(),
+                             [0 if w is None else w for w in wins], slack, pad,
+                             _f32(min_eig_threshold), max_iters, _f32(eps * eps))
+    return lk_track_plain(tmpl_levels, srch_levels, points, init, src_t, src_s, wins=wins,
+                          slack=slack, pad=pad, min_eig_threshold=min_eig_threshold,
+                          max_iters=max_iters, eps=eps)
 
 
 def _as_ring(level: torch.Tensor) -> torch.Tensor:
@@ -265,7 +348,6 @@ def pyramidal_lk(prev_pyr: Sequence[torch.Tensor], next_pyr: Sequence[torch.Tens
     if p.search_slack <= 0:
         raise NotImplementedError("search_slack <= 0 (the unbounded walk) is not ported")
     levels = len(prev_pyr)
-    pad = p.window // 2 + 2
     K = points.shape[0]
     zeros_k = torch.zeros(K, dtype=torch.int32, device=points.device)
     sp = zeros_k if src_prev is None else src_prev.int()
@@ -277,29 +359,12 @@ def pyramidal_lk(prev_pyr: Sequence[torch.Tensor], next_pyr: Sequence[torch.Tens
         win -= (win + 1) % 2
         return win if win >= 7 else None
 
-    init = points if initial_flow is None else initial_flow
-    guess = init / 2.0 ** (levels - 1)
-    ok = torch.zeros(K, dtype=torch.bool, device=points.device)
-    for lvl in range(levels - 1, -1, -1):
-        win = level_window(lvl)
-        if win is not None:
-            H, W = prev_pyr[lvl].shape[-2], prev_pyr[lvl].shape[-1]
-            corr, scal, ok_g = lk_prep(
-                _as_ring(prev_pyr[lvl]), _as_ring(next_pyr[lvl]), points / 2.0 ** lvl, guess,
-                sp, sn, win=win, slack=p.search_slack, pad=pad,
-                min_eig_threshold=p.min_eig_threshold)
-            pos, hit = lk_walk(corr, scal, guess, r=win // 2, ws=win + 2 * (p.search_slack + 1),
-                               pad=pad, max_iters=p.max_iters, eps=p.eps)
-            in_img = ((pos[:, 0] >= 0) & (pos[:, 0] <= W - 1)
-                      & (pos[:, 1] >= 0) & (pos[:, 1] <= H - 1))
-            ok_l = ok_g & in_img & torch.isfinite(pos).all(dim=-1) & ~hit
-            guess = torch.where(ok_l[:, None], pos, guess)
-            if lvl == 0:
-                # OpenCV semantics: the status comes from the finest level.
-                ok = ok_l
-        if lvl > 0:
-            guess = guess * 2.0
-    return FlowResult(points=guess, status=ok)
+    pts, ok = lk_track([_as_ring(l) for l in prev_pyr], [_as_ring(l) for l in next_pyr],
+                       points, points if initial_flow is None else initial_flow, sp, sn,
+                       wins=[level_window(l) for l in range(levels)], slack=p.search_slack,
+                       pad=p.window // 2 + 2, min_eig_threshold=p.min_eig_threshold,
+                       max_iters=p.max_iters, eps=p.eps)
+    return FlowResult(points=pts, status=ok)
 
 
 def _bwd_level_count(p: LKParams, levels: int) -> int:

@@ -13,10 +13,15 @@ Tolerances, and why:
   equal on >= 99% of pixels (100% measured). The variances are differences
   of nearly equal terms, E[x^2] - mu^2, on a smooth image, so a last-bit
   difference in a box sum grows by the ratio mu^2 / var. Those differences
-  are XLA's: it fuses each box-filter tap's product into its running sum
-  (an FMA) where the port rounds the product first; emulating the FMAs
-  (ops.image.fma_f32) halves the mismatches but not the largest one, so
-  the port keeps ops.image.box_filter.
+  are XLA's CPU code generation, the same in every plane (the 16 plane
+  fusions run two identical kernels): each box filter's taps fused into
+  FMAs, E[x^2] - mu^2 and the cross term fused, and cross / sqrt(v)
+  computed as cross * rsqrt(v) from the x86 rsqrt estimate and two Newton
+  steps. test_cost_volume_zncc_gap_is_xla_codegen shows that the FMAs
+  emulated and XLA's own rsqrt close the gap exactly, and that the FMAs
+  alone leave ~2e-7. The estimate is the CPU's, so the port cannot
+  reproduce those bits, and it keeps its plain box filters and correctly
+  rounded division.
 - the ZNCC match: within 1e-3 px on >= 99% of pixels (a near tie can flip).
 """
 
@@ -102,6 +107,49 @@ def test_cost_volume_zncc(pair):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-4)
     assert (np.argmin(ours, -1) == np.argmin(ref, -1)).mean() >= 0.99
     assert (np.argmin(ours, -1)[8:-8, 16:-8] == 5).mean() > 0.9
+
+
+def test_cost_volume_zncc_gap_is_xla_codegen(pair):
+    """The port's ZNCC formula with XLA's CPU code generation spelled out
+    gives JAX's volume bit for bit: every box filter's taps as FMAs (the
+    first sum fuses tap 0's product), E[x^2] - mu^2 and the cross term as
+    FMAs, and the division by sqrt as a product with XLA's rsqrt. With a
+    correctly rounded division instead, only last bits differ."""
+    from ocean_perception_tpu_torch.ops.image import _pad_reflect101, fma_f32, sqrt_f32
+
+    xla_rsqrt = jax.jit(jax.lax.rsqrt)
+    w = float(np.float32(1 / 5))
+
+    def box(img):
+        p = _pad_reflect101(img, 2, 2)
+
+        def taps(terms):
+            acc = fma_f32(terms[0], w, terms[1] * w)
+            for t in terms[2:]:
+                acc = fma_f32(t, w, acc)
+            return acc
+
+        rows = taps([p[i:i + H] for i in range(5)])
+        return taps([rows[:, j:j + W] for j in range(5)])
+
+    def volume(xla_division):
+        iml, imr = map(_t, pair)
+        mu_l = box(iml)
+        var_l = torch.clamp_min(fma_f32(-mu_l, mu_l, box(iml * iml)), 1e-8)
+        planes = []
+        for d in range(D):
+            rd = tcost._shift_right_image(imr, d)
+            mu_r = box(rd)
+            var_r = torch.clamp_min(fma_f32(-mu_r, mu_r, box(rd * rd)), 1e-8)
+            cross = fma_f32(-mu_l, mu_r, box(iml * rd))
+            v = var_l * var_r
+            z = (cross * _t(xla_rsqrt(v.numpy())) if xla_division else cross / sqrt_f32(v))
+            planes.append(1.0 - torch.clamp(z, -1.0, 1.0))
+        return torch.stack(planes, -1).numpy()
+
+    ref = np.asarray(jax.jit(lambda a, b: jcost.cost_volume_zncc(a, b, D, 5))(*pair))
+    np.testing.assert_array_equal(volume(True), ref)
+    np.testing.assert_allclose(volume(False), ref, rtol=0, atol=1e-6)
 
 
 def test_zncc_patchmatch(pair):

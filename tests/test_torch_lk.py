@@ -18,6 +18,14 @@ Tolerances, and why:
   where both accept. JAX holds its own fused path to its XLA path at
   >= 0.97 and < 0.01 px (tests/test_tracking.py::test_lk_fused_matches_xla).
 
+- the two-tap spelling of the lk_track kernel's recentring and surface
+  lookups (tents with two non-zero taps, the other products dropped)
+  against the twins' full sums: equal (torch.equal), on random and integer
+  positions, positions at the clamps and the slack-window edges, and
+  negative and zero values.
+- lk_track_plain over 6 levels (windows 21, 21, 21, 15, 7 and a skipped
+  level) against JAX's XLA path: as track_points above.
+
 Interpret mode compiles the Pallas kernels anew for every level shape and
 window (about 10 s each on the CPU), so the fused comparisons run one level.
 """
@@ -31,6 +39,8 @@ import torch
 from ocean_perception_tpu.ops.pallas.lk_iterate import lk_iterate_lane_major
 from ocean_perception_tpu.ops.pallas.lk_prep import lk_prep_pallas
 from ocean_perception_tpu.tracking import lk as jlk
+from ocean_perception_tpu_torch.ops import cuda
+from ocean_perception_tpu_torch.ops.image import image_pyramid
 from ocean_perception_tpu_torch.tracking import lk as tlk
 
 H, W = 120, 160
@@ -164,3 +174,128 @@ def test_appearance_gate_matches_jax(flow_pair):
                                    jnp.asarray(target), jlk.LKParams(**p))
         ours = tlk._appearance_gate(_t(prev), _t(nxt), _t(pts), _t(target), tlk.LKParams(**p))
         np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+# --- the lk_track kernel's two-tap arithmetic --------------------------------
+
+
+def _tent(pos, i):
+    return (1.0 - (pos - i.float()).abs()).clamp_min(0.0)
+
+
+def _two_tap_recentre(twin, fy, fx):
+    """csrc/lk.cu's recentring: each entry of the y and x contractions is
+    w0*v(floor(c)) + w1*v(floor(c) + 1); where floor(c) + 1 is past the
+    window, w1 is 0 and the second value is read at floor(c)."""
+    K, ST = twin.shape[0], twin.shape[-1]
+    P = ST - 1
+    i = torch.arange(P, dtype=torch.float32)
+    k = torch.arange(K)[:, None]
+    cy = ((fy[:, None] + i) - (P // 2)).clamp(0, ST - 1)             # (K, P)
+    cx = ((fx[:, None] + i) - (P // 2)).clamp(0, ST - 1)
+    a0 = cy.long()
+    a1 = (a0 + 1).clamp(max=ST - 1)
+    t1 = (_tent(cy, a0)[..., None] * twin[k, a0, :]
+          + _tent(cy, a0 + 1)[..., None] * twin[k, a1, :])            # (K, P, ST)
+    b0 = cx.long()
+    b1 = (b0 + 1).clamp(max=ST - 1)
+    kk, pp = torch.arange(K)[:, None, None], torch.arange(P)[None, :, None]
+    return (t1[kk, pp, b0[:, None, :]] * _tent(cx, b0)[:, None, :]
+            + t1[kk, pp, b1[:, None, :]] * _tent(cx, b0 + 1)[:, None, :])
+
+
+def _two_tap_lookup(corr, ry, rx):
+    """csrc/lk.cu's walk step lookup: the taps floor(r) and floor(r) + 1 on
+    each axis, x offsets first. A point still walking has ry, rx in
+    [1, A-2]; the clamp only keeps a stopped point's indices valid."""
+    A = corr.shape[-1]
+    a0 = torch.nan_to_num(ry).floor().clamp(0, A - 2).long()
+    b0 = torch.nan_to_num(rx).floor().clamp(0, A - 2).long()
+    k = torch.arange(corr.shape[0])
+    wx0, wx1 = _tent(rx, b0)[:, None], _tent(rx, b0 + 1)[:, None]
+    t0 = corr[k, :, a0, b0] * wx0 + corr[k, :, a0, b0 + 1] * wx1    # (K, 2)
+    t1 = corr[k, :, a0 + 1, b0] * wx0 + corr[k, :, a0 + 1, b0 + 1] * wx1
+    return t0 * _tent(ry, a0)[:, None] + t1 * _tent(ry, a0 + 1)[:, None]
+
+
+def test_two_tap_recentring_equals_the_full_sums(monkeypatch):
+    """lk_prep_plain with csrc/lk.cu's two-tap recentring gives the twin's
+    outputs: images with negative and zero regions; random, integer,
+    clamped and NaN points."""
+    rng = np.random.default_rng(12)
+    img = rng.normal(0.0, 1.0, (2, 40, 56)).astype(np.float32)
+    img[0, 10:20, 10:30] = 0.0
+    img[1, :, 40:] = -np.abs(img[1, :, 40:])
+    K = 40
+    pts = np.stack([rng.uniform(0, 55, K), rng.uniform(0, 39, K)], 1).astype(np.float32)
+    pts[:8] = np.round(pts[:8])                       # one non-zero tap
+    pts[8:12] = [[0, 0], [55, 39], [-7.5, 3.25], [70.2, 45.9]]  # at and past the clamps
+    pts[12] = np.nan
+    pts[13:16] = [[15.0, 12.5], [20.25, 14.0], [12.0, 11.0]]  # on the zero block
+    src = (np.arange(K) % 2).astype(np.int32)
+    args = (_t(img), _t(img[::-1].copy()), _t(pts), _t(pts + np.float32(0.5)), _t(src), _t(src))
+    for win in (21, 7):
+        kw = dict(win=win, slack=4, pad=PAD, min_eig_threshold=1.5e-9)
+        want = tlk.lk_prep_plain(*args, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(tlk, "_recentre", _two_tap_recentre)
+            got = tlk.lk_prep_plain(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_two_tap_lookup_equals_the_full_sums(monkeypatch):
+    """lk_walk_plain with csrc/lk.cu's two-tap lookups gives the twin's
+    positions and flags: surfaces with negative entries and zero rows;
+    random starts, starts on whole offsets (one non-zero tap a step) and on
+    the slack window's edges, and NaN."""
+    rng = np.random.default_rng(13)
+    K, A, r, ws, pad = 48, 11, 10, 31, PAD
+    corr = rng.normal(0.0, 1.0, (K, 2, A, A)).astype(np.float32)
+    corr[::3, :, 4] = 0.0
+    corr[1::3] = -np.abs(corr[1::3])
+    scal = np.zeros((K, 8), np.float32)
+    scal[:, :2] = rng.normal(0.0, 1.0, (K, 2))
+    scal[:, 2] = scal[:, 5] = rng.uniform(0.2, 0.5, K)
+    scal[:, 3] = scal[:, 4] = rng.uniform(-0.1, 0.1, K)
+    scal[:, 6:] = rng.integers(0, 20, (K, 2))
+    # c = pos + pad - origin, walked inside [r + 1, ws - r - 2] = [11, 19].
+    c = rng.uniform(11, 19, (K, 2)).astype(np.float32)
+    c[:8] = np.round(c[:8])                            # whole offsets
+    c[8:16] = rng.choice([11.0, 19.0], (8, 2))         # on the edges
+    c[16:20] = [[10.999999, 15], [15, 19.000002], [11, 19], [19, 11]]
+    pos0 = (c - pad + scal[:, [7, 6]]).astype(np.float32)
+    pos0[20] = np.nan
+    args = (_t(corr), _t(scal), _t(pos0))
+    for max_iters in (1, 3, 30):
+        kw = dict(r=r, ws=ws, pad=pad, max_iters=max_iters, eps=0.01)
+        want = tlk.lk_walk_plain(*args, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(tlk, "_surface_lookup", _two_tap_lookup)
+            got = tlk.lk_walk_plain(*args, **kw)
+        assert torch.equal(got[0].nan_to_num(-1e30), want[0].nan_to_num(-1e30))
+        assert torch.equal(got[1], want[1])
+    assert 0 < int(want[1].sum()) < K                  # some points hit, some walk on
+
+
+def test_lk_track_levels_match_jax(flow_pair):
+    """Six levels coarse to fine: 120x160 down to 4x5, so the windows are 21,
+    21, 21, 15 and 7 and the coarsest level is skipped (level_window)."""
+    prev, nxt, pts = flow_pair
+    K = len(pts)
+    valid = np.ones(K, bool)
+    ref = jlk.track_points(jnp.asarray(prev), jnp.asarray(nxt), jnp.asarray(pts),
+                           jnp.asarray(valid), jlk.LKParams(max_level=5, **JAX_XLA))
+    cuda.reset_launches()
+    ours = tlk.track_points(_t(prev), _t(nxt), _t(pts), _t(valid), tlk.LKParams(max_level=5))
+    assert set(cuda.LAUNCHES.values()) == {0}
+    _assert_flow_close(ours, ref, 0.8 * K)
+    pyr = image_pyramid(_t(prev), 6)
+    steps = []
+    tlk.lk_track_plain([l[None] for l in pyr], [l[None] for l in image_pyramid(_t(nxt), 6)],
+                       _t(pts), _t(pts), torch.zeros(K, dtype=torch.int32),
+                       torch.zeros(K, dtype=torch.int32), wins=[21, 21, 21, 15, 7, None],
+                       slack=4, pad=PAD, min_eig_threshold=1.5e-9, max_iters=30, eps=0.01,
+                       steps=steps)
+    assert [l.shape for l in pyr][-2:] == [(8, 10), (4, 5)]
+    assert [lvl for lvl, _ in steps] == [4, 3, 2, 1, 0]

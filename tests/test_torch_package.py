@@ -87,9 +87,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda.pm_mask_background_strip(V_col, x, 0.8, 1)
     ring, pts, src = torch.zeros(2, 8, 16), torch.zeros(4, 2), torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda.lk_prep(ring, ring, pts, pts, src, src, 7, 4, 5, 1e-9)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda.lk_walk(torch.zeros(4, 2, 11, 11), torch.zeros(4, 8), pts, 3, 17, 5, 30, 1e-4)
+        cuda.lk_track([ring], [ring], pts, pts, src, src, [7], 4, 5, 1e-9, 30, 1e-4)
 
 
 @pytest.mark.parametrize("extra", [dict(right_wta=True), dict(right_wta=True, use_strip_volumes=True),
@@ -344,42 +342,83 @@ def test_engines_gpu_match_cpu(cuda_device, engine, extra):
     assert ((gpu.left.cpu() - cpu.left).abs() <= 1e-3).float().mean() >= 0.99
 
 
-@pytest.mark.gpu
-def test_lk_kernels_match_plain(cuda_device):
-    """lk_prep and lk_walk against their twins on a 3-frame ring, both
-    directions, with points at the borders, outside the image and NaN."""
-    rng = np.random.default_rng(44)
-    ring = torch.from_numpy(rng.random((3, 90, 160)).astype(np.float32)).to(cuda_device)
-    cur = ring[1:2] * 0.5 + 0.25
-    K = 200
-    pts = torch.from_numpy(np.stack([rng.uniform(-5, 165, K), rng.uniform(-5, 95, K)], 1)
-                           .astype(np.float32)).to(cuda_device)
-    pts[0] = float("nan")
-    guess = pts + 1.25
-    src = torch.from_numpy(rng.integers(0, 3, K).astype(np.int32)).to(cuda_device)
+def _lk_levels(device, rng, huge=False):
+    """A 3-frame ring and a current frame, 4 levels from 90x160 down."""
+    ring = rng.random((3, 90, 160)).astype(np.float32)
+    cur = np.roll(ring[1:2], (1, -2), (1, 2)) * 0.5 + 0.25
+    if huge:  # values the kernel's two-tap sums must not take
+        ring[0, 40:44, 60:64] = 3e38
+        ring[2, 10, 10] = np.inf
+        cur[0, 50, 100:103] = -np.inf
+    levels = [(ring, cur)]
+    for _ in range(3):
+        levels.append(tuple(np.ascontiguousarray(a[:, ::2, ::2]) for a in levels[-1]))
+    return ([torch.from_numpy(r).to(device) for r, _ in levels],
+            [torch.from_numpy(c).to(device) for _, c in levels])
+
+
+def _lk_points(device, rng, K):
+    pts = np.stack([rng.uniform(-5, 165, K), rng.uniform(-5, 95, K)], 1).astype(np.float32)
+    special = [(np.nan, np.nan), (0.0, 0.0), (159.0, 89.0), (-50.0, 20.0), (80.0, 45.0)]
+    n = min(K, len(special))
+    pts[:n] = np.array(special[:n], np.float32).reshape(n, 2)
+    return torch.from_numpy(pts).to(device)
+
+
+def _check_lk_track(rings, curs, pts, src, wins):
+    """lk_track against lk_track_plain forward (templates from the ring)
+    and backward (searching the ring), one launch a direction."""
+    K = pts.shape[0]
+    kw = dict(wins=wins, slack=4, pad=12, min_eig_threshold=1.5e-9, max_iters=30, eps=0.01)
     zero = torch.zeros_like(src)
-    for tmpl, srch, st, ss in ((ring, cur, src, zero), (cur, ring, zero, src)):
-        for win in (21, 15):
-            kw = dict(win=win, slack=4, pad=12, min_eig_threshold=1.5e-9)
-            before = cuda.LAUNCHES["lk_prep"]
-            got = tlk.lk_prep(tmpl, srch, pts, guess, st, ss, **kw)
-            assert cuda.LAUNCHES["lk_prep"] == before + 1
-            want = tlk.lk_prep_plain(tmpl, srch, pts, guess, st, ss, **kw)
-            for a, b in zip(got, want):
-                assert torch.equal(a, b)
-            wk = dict(r=win // 2, ws=win + 10, pad=12, max_iters=30, eps=0.01)
-            pos_k, hit_k = tlk.lk_walk(*got[:2], guess, **wk)
-            pos_p, hit_p = tlk.lk_walk_plain(*got[:2], guess, **wk)
-            assert torch.equal(pos_k.nan_to_num(-1e9), pos_p.nan_to_num(-1e9))
-            assert torch.equal(hit_k, hit_p)
+    fwd_init = pts + 1.25
+    for tmpl, srch, st, ss, points, init in ((rings, curs, src, zero, pts, fwd_init),
+                                             (curs, rings, zero, src, None, None)):
+        if points is None:  # backward: from the forward points, as _round_trip does
+            points = init = got[0]
+        before = cuda.LAUNCHES["lk_track"]
+        got = tlk.lk_track(tmpl, srch, points, init, st, ss, **kw)
+        assert cuda.LAUNCHES["lk_track"] == before + (1 if K else 0)
+        want = tlk.lk_track_plain(tmpl, srch, points, init, st, ss, **kw)
+        assert torch.equal(got[0].nan_to_num(-1e30), want[0].nan_to_num(-1e30))
+        assert torch.equal(got[1], want[1])
     torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wins", [[21, 15, 21, None], [15, 15, 15, 15]], ids=["21-15-skip", "15"])
+@pytest.mark.parametrize("K", [0, 1, 33, 200, 257])
+def test_lk_track_matches_plain(cuda_device, K, wins):
+    """lk_track on 4 levels (windows 21 and 15, a skipped level) with NaN
+    points, points outside the image and on its borders, and a per-point
+    template frame."""
+    rng = np.random.default_rng(44 + K)
+    rings, curs = _lk_levels(cuda_device, rng)
+    src = torch.from_numpy(rng.integers(0, 3, K).astype(np.int32)).to(cuda_device)
+    pts, ok = _check_lk_track(rings, curs, _lk_points(cuda_device, rng, K), src, wins)
+    if K >= 200:
+        assert ok.float().mean() > 0.3  # the walk tracks most points both ways
+
+
+@pytest.mark.gpu
+def test_lk_track_full_sums_on_huge_values(cuda_device):
+    """Values too large (or not finite) for the two-tap sums send the kernel
+    down the full sums, which keep the twin's infinities and NaNs."""
+    rng = np.random.default_rng(46)
+    rings, curs = _lk_levels(cuda_device, rng, huge=True)
+    K = 64
+    pts = _lk_points(cuda_device, rng, K)
+    pts[5:16] = torch.tensor([61.0, 41.5], device=cuda_device)  # on the 3e38 block
+    src = torch.zeros(K, dtype=torch.int32, device=cuda_device)
+    _check_lk_track(rings, curs, pts, src, [21, 21, 15, 7])
 
 
 @pytest.mark.gpu
 def test_frontend_gpu_matches_cpu(cuda_device):
     cuda.reset_launches()
     gpu = _run_frontend(_frontend_setup(cuda_device))
-    assert cuda.LAUNCHES["lk_prep"] == cuda.LAUNCHES["lk_walk"] == 3 * 4
+    assert cuda.LAUNCHES["lk_track"] == 3 * 2  # forward and backward, every level at once
     cpu = _run_frontend(_frontend_setup("cpu"))
     for g, c in zip(gpu, cpu):
         assert torch.equal(g.mesher.labels.cpu(), c.mesher.labels)
