@@ -6,23 +6,30 @@ max_disp=128, internal_scale=2, enhancement on) on synthetic scenes of known
 disparity and motion, in phases:
 
 1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles the hand-written kernels from ``csrc/``;
-3. each PatchMatch kernel against its plain PyTorch twin on the card, at the
-   shapes the 720p path gives it (bit-identical; each pass on seeded and on
-   adversarial fronts, in bf16 and float32), with its times (below);
+2. build: compiles the hand-written kernels from ``csrc/`` and, beside
+   them, a pointer chase that measures the latency of a dependent load
+   from L2 (run once before phase 3);
+3. the cost volume and the PatchMatch match kernel ``pm_match`` (the whole
+   one-side match in one launch) against their plain PyTorch twins on the
+   card, at the shapes the 720p path gives them (bit-identical; the match in
+   bf16 and float32, on the path's seed and on an adversarial seed whose
+   lookups tie and clamp and whose mask fires), with their times, bounds
+   and the match's chain of dependent round trips (below);
 4. ``perception_step`` end to end: three runs of 8 frames, checking the
    kernels' launch counts, finite outputs and the disparity against the
    scene's truth; its host syncs a frame (there must be none); then the
    whole step captured in one CUDA graph and replayed over the 8 frames
-   (ms/frame beside the call path's; its disparity equal to the call
-   path's); then the call time of each stage;
+   (ms/frame beside the call path's, and the match's share of the graph
+   frame; its disparity equal to the call path's); then the call time of
+   each stage;
 5. the same perception frame through the port on the CPU, against the card;
-6. ``build_volumes`` (bf16 and float32) and each strip-layout PatchMatch
-   kernel against their twins at the 720p shapes (bit-identical, the passes
-   as in phase 3), with their times, then the whole strip-volume match;
+6. ``build_volumes`` (bf16 and float32) and ``pm_match_strip`` (the match
+   over the two strip layouts) against their twins at the 720p shapes
+   (bit-identical, the match as in phase 3, and equal to the (H, W, D)
+   match), with their times;
 7. ``perception_step`` with ``use_strip_volumes=True``, as in phase 4 (runs,
-   launch counts, no host sync, graph replay), with a disparity equal bit
-   for bit to phase 4's on the same frame;
+   launch counts, no host sync, graph replay and the match's share), with a
+   disparity equal bit for bit to phase 4's on the same frame;
 8. the other stereo configurations at 720p: the SGM and WTA engines of
    ``perception_step`` and two-sided and ZNCC PatchMatch (through
    ``estimate_disparity`` at the perception step's half resolution, then
@@ -60,13 +67,17 @@ power limit; the one before that lists each kernel with its launches on its
 own path (launch counts are zeroed just before each path is driven and read
 just after), its error against the plain twin, its times, and its bound:
 the larger of the bytes it must move over 3.35 TB/s and the operations it
-must do over 67 TFLOP/s (float32), from this run's shapes.
+must do over 67 TFLOP/s (float32), from this run's shapes (for the match,
+the volume elements its plain twin reads on this run's seed); for the match
+and ``lk_track`` also their chains of dependent operations (the match's in
+units of the chase's latency in this run).
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -107,23 +118,19 @@ N_RUNS = 3  # timed runs of N_FRAMES frames of each perception layout
 # Host syncs a full_frontend_step frame keeps (PERF.md, section 5).
 FRONTEND_SYNCS = 0
 # Launches of each kernel per frame of each path.
-PER_FRAME = {"cost_volume": 1, "pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}
-PER_STRIP_FRAME = {"build_volumes": 1, "pm_refresh_strip": 3, "pm_propagate_strip": 12,
-                   "pm_mask_background_strip": 1}
+PER_FRAME = {"cost_volume": 1, "pm_match": 1}
+PER_STRIP_FRAME = {"build_volumes": 1, "pm_match_strip": 1}
 PER_FRONTEND_FRAME = dict(PER_FRAME, lk_track=2)  # forward and backward, 4 levels each
 SHIFT = 2  # frontend sequence: features move -SHIFT px a frame
 PM_CU = "ocean_perception_tpu_torch/csrc/patchmatch.cu"
 SOURCES = {
     "cost_volume": ("ocean_perception_tpu_torch/csrc/cost_volume.cu",
                     "ocean_perception_tpu/ops/pallas/cost_volume.py:97"),
-    "pm_refresh": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
-    "pm_propagate": (PM_CU, "ocean_perception_tpu/ops/pallas/propagate.py:115"),
-    "pm_mask_background": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580"),
+    "pm_match": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:580 and "
+                        "ocean_perception_tpu/ops/pallas/propagate.py:115"),
     "build_volumes": ("ocean_perception_tpu_torch/csrc/volume_build.cu",
                       "ocean_perception_tpu/ops/pallas/volume_build.py:242"),
-    "pm_refresh_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
-    "pm_propagate_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
-    "pm_mask_background_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
+    "pm_match_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
     "lk_track": ("ocean_perception_tpu_torch/csrc/lk.cu",
                  "ocean_perception_tpu/ops/pallas/lk_prep.py:291 and "
                  "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
@@ -135,12 +142,42 @@ PEAK_F32_PER_S = 67e12
 # A float32 add's latency on Hopper, in cycles, and the H100 SXM's boost
 # clock: the time floor of a chain of dependent operations.
 OP_CYCLES, CLOCK_HZ = 4, 1.98e9
+# The unit of the match's chain of dependent round trips, measured in the
+# run (l2_latency): one thread chases a random cycle of indices through a
+# 4 MB buffer with loads that go to L2 (ld.global.cg), STEPS steps to bring
+# the lines into L2, then the same STEPS again between two readings of the
+# SM's clock (clock64) and of the global timer (%globaltimer, ns).
+CHASE_STEPS = 4096
+CHASE_CU = r"""
+#include <cuda_runtime.h>
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+__global__ void chase(const unsigned* next, int steps, unsigned* sink, long long* out) {
+  unsigned i = 0;
+  for (int s = 0; s < steps; ++s) i = __ldcg(next + i);
+  i = 0;
+  const long long c0 = clock64(), t0 = global_ns();
+  for (int s = 0; s < steps; ++s) i = __ldcg(next + i);
+  const long long t1 = global_ns(), c1 = clock64();
+  *sink = i;
+  out[0] = c1 - c0;
+  out[1] = t1 - t0;
+}
+extern "C" int opt_chase(const void* next, int steps, void* sink, void* out, void* stream) {
+  chase<<<1, 1, 0, (cudaStream_t)stream>>>((const unsigned*)next, steps, (unsigned*)sink,
+                                           (long long*)out);
+  return (int)cudaGetLastError();
+}
+"""
+CHASE_DIR = cuda._BUILD / "l2_chase"
 # Dependent operations in one step of lk_track's walk (csrc/lk.cu, walk):
 # the position to the offsets (3), floor and the tap's address (3), the
 # shared load, two-tap products and sums over x then y (4), the residual
 # (1), the 2x2 step (2) and the new position (1).
 LK_STEP_CHAIN = 15
-PASSES = pm.PASSES  # R+ C+ R- C-
 
 
 def make_canvas() -> np.ndarray:
@@ -181,14 +218,13 @@ def call_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
-KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_refresh|pm_propagate|pm_mask_background"
-                       r"|lk_track)(?:_rows|_cols)?_kernel")
+KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|lk_track)_kernel")
 
 
 def launch_name(kernel: str) -> str | None:
     """The launch name of a kernel as the profiler names it, demangled or
-    not: ``pm_propagate_rows_kernel<float, (anonymous namespace)::RowStrips<float>>``
-    is ``pm_propagate_strip``, its Hwd form ``pm_propagate``; None for a
+    not: ``pm_match_kernel<float, (anonymous namespace)::RowStrips<float>, ...>``
+    is ``pm_match_strip``, its Hwd form ``pm_match``; None for a
     kernel that no wrapper of ``ops/cuda.py`` launches."""
     m = KERNEL_RE.search(kernel)
     if m is None:
@@ -284,16 +320,17 @@ def times_line(t: dict) -> str:
             f"replay); call {t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms")
 
 
-def adversarial_fronts(vol: torch.Tensor, shape, seed: int = 5):
-    """Fronts on which a pass's compare flips often: disparities uniform in
-    [0, D), half of them on the half-integer grid (rounding ties), and costs
-    drawn from the volume's own entries at random, in its dtype."""
+def adversarial_seed(shape, D: int, device, seed: int = 5):
+    """A seed and a noise image on which the match's lookups tie and clamp
+    and its mask fires: disparities on the half-integer grid over [0, D + 4),
+    a quarter of them 0 (background), so past x - pr at the left edge and
+    past D - 1; noise on the 1/64 grid, so that noise * 32, 16 and 8 keep
+    the refreshed disparities on the half-integer grid."""
     rng = np.random.default_rng(seed)
-    d = rng.uniform(0, vol.shape[2], shape).astype(np.float32)
-    half = rng.random(shape) < 0.5
-    d[half] = np.floor(d[half] * 2) / 2
-    pick = torch.from_numpy(rng.integers(0, vol.numel(), int(np.prod(shape)))).to(vol.device)
-    return torch.from_numpy(d).to(vol.device), vol.reshape(-1)[pick].reshape(shape).contiguous()
+    d = np.floor(rng.uniform(0, D + 4, shape) * 2).astype(np.float32) / 2
+    d[rng.random(shape) < 0.25] = 0
+    noise = (rng.integers(-64, 64, shape) / 64).astype(np.float32)
+    return torch.from_numpy(d).to(device), torch.from_numpy(noise).to(device)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -322,24 +359,106 @@ def bound(nbytes: float, flops: float = 0.0) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def pm_bounds(H: int, W: int, D: int, esize: int, p) -> dict:
-    """Bytes bounds of the three PatchMatch kernels on an (H, W) front: each
-    (H, W) input read once and each output written once, plus the volume
-    elements the lookups need (one a pixel for the refresh, two for the mask,
-    one a scan position for a pass). A pass is also a chain of chunk+2*halo
-    dependent loads, which no bytes bound sees."""
-    px = H * W
-    passes = []
-    for _, axis in PASSES:
-        dim, lanes = (W, H) if axis == 1 else (H, W)
-        chunks = sc._effective_chunks(dim, pm._strips(p, axis))
-        steps = chunks * lanes * (dim // chunks + 2 * p.halo)
-        passes.append(bound(2 * px * (4 + esize) + steps * esize)["bound_ms"])
-    return {
-        "refresh": bound(px * (4 + 4 + esize + 4 + esize)),
-        "propagate": dict(bound_ms=statistics.mean(passes), bound_by="bytes"),
-        "mask": bound(px * (4 + 2 * esize + 4)),
-    }
+class VolumeReads(torch.overrides.TorchFunctionMode):
+    """Records which elements of the volumes a plain match reads: the
+    storage offsets of every advanced index (``vol[a, b, d]``) into a view
+    of one of vols and of every ``torch.gather`` from one, each volume's
+    offsets apart. A pass's reads where its loop bounds fail (the 1-px
+    frame, the last row or column of a scan) decide nothing and are left
+    out; so are basic indices (the mask's cost(0), added by the caller)."""
+
+    def __init__(self, vols, pr: int):
+        super().__init__()
+        self.vols = {v.data_ptr(): i for i, v in enumerate(vols)}
+        self.pr = pr
+        self.offsets = [[] for _ in vols]
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        src = args[0] if args else None
+        k = self.vols.get(src.data_ptr()) if isinstance(src, torch.Tensor) else None
+        if k is not None and func is torch.Tensor.__getitem__ and isinstance(args[1], tuple) \
+                and all(isinstance(i, torch.Tensor) for i in args[1]):
+            a, b, d = torch.broadcast_tensors(*args[1])
+            n, lanes, pr = src.shape[0], src.shape[1], self.pr
+            used = (a >= pr) & (a <= n - pr - 2) & (b >= pr) & (b <= lanes - pr - 1)
+            off = a * src.stride(0) + b * src.stride(1) + d * src.stride(2)
+            self.offsets[k].append(off[used])
+        elif k is not None and func is torch.gather:
+            assert args[1] in (-1, src.dim() - 1), "a gather along the disparity axis"
+            index = args[2]
+            grid = torch.meshgrid(*(torch.arange(m, device=index.device) for m in index.shape[:-1]),
+                                  indexing="ij")
+            off = sum(g[..., None] * st for g, st in zip(grid, src.stride())) + index * src.stride(-1)
+            self.offsets[k].append(off.flatten())
+        return func(*args, **kwargs)
+
+
+def match_bound(C_row: torch.Tensor, C_col: torch.Tensor, seed, noise, p, spec: int,
+                l2: dict) -> dict:
+    """Bound of one match launch whose row passes read C_row and whose other
+    reads go to C_col ((H, W, D) each, the same tensor for pm_match), on
+    this seed and noise; and its chain.
+    Bytes: what must cross the card's memory in one launch. The seed and
+    the noise are read once and the output written once; of the volumes,
+    each element the plain twin's reads need (``VolumeReads`` over
+    ``_match_passes``, and cost(0) of every pixel for the mask), once a
+    layout, however many passes read it. The fronts, 1.4 MB a pair at 720p,
+    stay in the 50 MB L2 between passes and are not counted. The chain of dependent L2 round trips: a row pass
+    stages its fronts (one trip, two with the refresh's lookups), then
+    walks its chunk + 2*halo positions, spec of them a trip; a column pass
+    reads its predecessor, then walks one position a trip; each grid
+    barrier between passes is two (arrive, then see the release). A trip
+    takes l2["ns"], the pointer chase's latency in this run."""
+    H, W, D = C_col.shape
+    vols = [C_row] if C_row.data_ptr() == C_col.data_ptr() else [C_row, C_col]
+    reads = VolumeReads(vols, p.patch_radius)
+    with reads:
+        pm._match_passes(C_row, C_col, seed, noise, p)
+    # The first read is the seed's cost, which the first refresh replaces
+    # before anything reads it.
+    if reads.offsets[-1][0].numel() != H * W:
+        raise AssertionError("the plain match no longer starts with the seed's cost")
+    reads.offsets[-1].pop(0)
+    yy, xx = torch.meshgrid(torch.arange(H, device=C_col.device),
+                            torch.arange(W, device=C_col.device), indexing="ij")
+    reads.offsets[-1].append((yy * C_col.stride(0) + xx * C_col.stride(1)).flatten())
+    elements = sum(int(torch.unique(torch.cat(o)).numel()) for o in reads.offsets)
+    nbytes = H * W * (4 + 4 + 4) + elements * C_col.element_size()
+    passes = 4 * p.iters
+    trips = 2 * (passes - 1)
+    for k in range(passes):
+        axis = 1 if k % 2 == 0 else 0
+        dim = W if axis == 1 else H
+        w = dim // sc._effective_chunks(dim, pm._strips(p, axis)) + 2 * p.halo
+        trips += (1 + (k % 4 == 0) + -(-w // spec)) if axis == 1 else 1 + w
+    return dict(**bound(nbytes), volume_elements=elements, chain_trips=trips,
+                chain_ms=trips * l2["ns"] / 1e6)
+
+
+def l2_latency(dev) -> dict:
+    """The latency of a dependent load that hits L2 (CHASE_CU), the median
+    over 3 runs, in cycles of the SM's clock and in ns."""
+    n = 1 << 20
+    order = np.random.default_rng(9).permutation(n)
+    nxt = np.empty(n, np.uint32)
+    nxt[order] = np.roll(order, -1)
+    nxt_t = torch.from_numpy(nxt.view(np.int32)).to(dev)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = ctypes.CDLL(str(CHASE_DIR / "chase.so"))
+    lib.opt_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p]
+    runs = []
+    for _ in range(3):
+        cuda._check(lib.opt_chase(nxt_t.data_ptr(), CHASE_STEPS, sink.data_ptr(), out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream), "chase")
+        runs.append([v / CHASE_STEPS for v in out.tolist()])
+    cycles, ns = statistics.median(r[0] for r in runs), statistics.median(r[1] for r in runs)
+    print(f"[l2] pointer chase, a dependent L2 load: "
+          + ", ".join(f"{c:.1f} cycles {t:.1f} ns" for c, t in runs)
+          + f"; median {cycles:.1f} cycles, {ns:.1f} ns")
+    return dict(cycles=cycles, ns=ns)
 
 
 def phase_device() -> tuple[str, str]:
@@ -355,34 +474,27 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    """The port's kernels and, beside them, the pointer chase."""
     t0 = time.perf_counter()
-    path = cuda.build(verbose=True)
-    cuda.library()
+    CHASE_DIR.mkdir(parents=True, exist_ok=True)
+    (CHASE_DIR / "chase.cu").write_text(CHASE_CU)
+    chase = subprocess.Popen([cuda._nvcc(), *cuda.NVCC_FLAGS, "-shared", "-o",
+                              str(CHASE_DIR / "chase.so"), str(CHASE_DIR / "chase.cu")],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        path = cuda.build(verbose=True)
+        cuda.library()
+    finally:
+        _, err = chase.communicate()
+    if chase.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the pointer chase:\n{err}")
     print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
 
 
-def check_passes(tag: str, kernel, plain, fronts: dict) -> float:
-    """kernel(disp, cost, direction, axis) against plain(...) on every pass
-    R+ C+ R- C- and every front of fronts ({name: (disp, cost)}):
-    bit-identical. Returns the max |diff| (0)."""
-    err = 0.0
-    for name, (disp, cost) in fronts.items():
-        for direction, axis in PASSES:
-            (dk, ck) = kernel(disp, cost, direction, axis)
-            (dp, cp) = plain(disp, cost, direction, axis)
-            t = f"{tag}, {name} fronts, dir={direction:+d} axis={axis}"
-            require_equal(t + " disp", dk, dp)
-            require_equal(t + " cost", ck, cp)
-            err = max(err, max_abs(dk, dp), max_abs(ck, cp))
-    print(f"[passes] {tag}: bit-identical to the plain twin on the {' and '.join(fronts)} "
-          f"fronts, 4 passes each")
-    return err
-
-
-def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
-    """Each kernel against its plain twin on identical inputs at 720p shapes,
-    then its device time (profiler and graph replay), its call time and its
-    twin's."""
+def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dict) -> dict:
+    """cost_volume and pm_match against their plain twins on identical
+    inputs at 720p shapes, then their device time (profiler and graph
+    replay), their call time and their twins'."""
     dev = left_rgb.device
     iml = pyr_down(to_grayscale(left_rgb))
     imr = pyr_down(to_grayscale(right_rgb))
@@ -406,79 +518,46 @@ def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
             lambda: cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16))]),
         **bound(4 * Hs * Ws * 4 + C.numel() * C.element_size()),
     )
-    bounds = pm_bounds(Hs, Ws, D, C.element_size(), p)
-
     seed = pm.sparse_wta_seed(C, p)
     noise = pm.unit_noise(iml.shape, p.noise_seed, device=dev)
-    scale, pr = p.noise_scale0, p.patch_radius
-
-    d_k, c_k = cuda.pm_refresh(C, seed, noise, scale, pr)
-    d_p, c_p = pm._refresh_plain(C, seed, noise, scale, pr)
-    require_equal("pm_refresh disp", d_k, d_p)
-    require_equal("pm_refresh cost", c_k, c_p)
-    rows["pm_refresh"] = dict(
-        max_abs_err=max(max_abs(d_k, d_p), max_abs(c_k, c_p)),
-        **summarize([measure("pm_refresh", lambda: cuda.pm_refresh(C, seed, noise, scale, pr),
-                             lambda: pm._refresh_plain(C, seed, noise, scale, pr))]),
-        **bounds["refresh"],
-    )
-
-    def strips(axis):
-        return pm._effective_chunks(Ws if axis == 1 else Hs, p.chunks)
-
-    err = 0.0
-    for vol in (C, C32):
-        seeded = pm._refresh_plain(vol, seed, noise, scale, pr)
-        err = max(err, check_passes(
-            f"pm_propagate {vol.dtype}",
-            lambda d, c, direction, axis: cuda.pm_propagate(vol, d, c, direction, axis,
-                                                            strips(axis), p.halo, pr),
-            lambda d, c, direction, axis: pm._propagate_plain(vol, d, c, direction, axis, p),
-            {"seeded": seeded, "adversarial": adversarial_fronts(vol, (Hs, Ws))}))
-    calls = []
-    for direction, axis in PASSES:
-        calls.append(measure(
-            "pm_propagate",
-            lambda: cuda.pm_propagate(C, d_p, c_p, direction, axis, strips(axis), p.halo, pr),
-            lambda: pm._propagate_plain(C, d_p, c_p, direction, axis, p)))
-        print(f"[kernels] pm_propagate dir={direction:+d} axis={axis}: {times_line(calls[-1])}, "
-              f"{strips(axis)} strips")
-    rows["pm_propagate"] = dict(max_abs_err=err, **summarize(calls), **bounds["propagate"])
-
-    final = pm._propagate_plain(C, d_p, c_p, -1, 0, p)[0]
-    m_k = cuda.pm_mask_background(C, final, p.improve_factor, pr)
-    m_p = pm.mask_background_plain(C, final, p)
-    require_equal("pm_mask_background", m_k, m_p)
-    rows["pm_mask_background"] = dict(
-        max_abs_err=max_abs(m_k, m_p),
-        **summarize([measure("pm_mask_background",
-                             lambda: cuda.pm_mask_background(C, final, p.improve_factor, pr),
-                             lambda: pm.mask_background_plain(C, final, p))]),
-        **bounds["mask"],
-    )
-
-    # The whole left-side match (K3's composition): kernels vs plain twins.
-    def match_plain():
-        disp = seed
-        for it in range(p.iters):
-            disp = pm.add_foreground_noise(disp, noise, p.noise_scale0 / 2.0**it)
-            cost = pm._full_cost_map(C, disp, pr)
-            for direction, axis in PASSES:
-                disp, cost = pm._propagate_plain(C, disp, cost, direction, axis, p)
-        return pm.mask_background_plain(C, disp, p)
-
-    full_k, full_p = pm._match_one_side(C, seed, noise, p), match_plain()
-    require_equal("match_one_side", full_k, full_p)
-    k_ms = call_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    g_ms = graph_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    p_ms = call_ms(match_plain)
-    print(f"[kernels] match_one_side (3 refresh + 12 passes + mask): call {k_ms:.4f} ms, "
-          f"device {g_ms:.4f} ms (graph replay), plain {p_ms:.4f} ms, "
-          f"valid {(full_k > 0).float().mean().item():.3f}")
-    for name, row in rows.items():
-        print(f"[kernels] {name}: {times_line(row)}; bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']}), max |diff| {row['max_abs_err']}")
+    rows["pm_match"] = check_match(
+        "pm_match", {torch.float32: C32, torch.bfloat16: C}, seed, noise, p,
+        lambda vol, s, n: pm._match_one_side(vol, s, n, p),
+        lambda vol: (vol, vol), match_bound(C, C, seed, noise, p, 4, l2))
     return rows
+
+
+def check_match(name, vols, seed, noise, p, kernel, plain_volumes, bounds) -> dict:
+    """A match kernel, kernel(vol, seed, noise), against the plain twin
+    _match_plain(*plain_volumes(vol), ...) on each volume of vols ({dtype:
+    volume or layouts}), on the path's seed and noise and on an adversarial
+    seed: bit-identical, the mask zeroing some pixels and keeping others.
+    Then its times on
+    the last (bf16, the production dtype) with the path's seed."""
+    err, pr = 0.0, p.patch_radius
+    adversarial = adversarial_seed(tuple(seed.shape), p.max_disp, seed.device)
+    for dtype, vol in vols.items():
+        for tag, (s, n) in (("the path's", (seed, noise)), ("an adversarial", adversarial)):
+            got = kernel(vol, s, n)
+            want = pm._match_plain(*plain_volumes(vol), s, n, p)
+            require_equal(f"{name} {dtype} {tag}", got, want)
+            err = max(err, max_abs(got, want))
+            # Interior pixels the mask zeroed, of those the passes left nonzero.
+            pre = pm._match_passes(*plain_volumes(vol), s, n, p)[0][pr:-pr, pr:-pr]
+            masked = int(((pre > 0) & (want[pr:-pr, pr:-pr] == 0)).sum())
+            kept = float((got > 0).float().mean())
+            if not (masked > 0 and kept > 0):
+                raise AssertionError(f"{name} {dtype}, {tag} seed: the mask zeroed {masked} "
+                                     f"pixels, {kept} of pixels kept")
+            print(f"[{name}] {dtype}, {tag} seed: bit-identical to the plain twin, "
+                  f"{kept:.4f} of pixels kept, {masked} zeroed by the mask")
+    row = dict(max_abs_err=err, **summarize([measure(
+        name, lambda: kernel(vol, seed, noise),
+        lambda: pm._match_plain(*plain_volumes(vol), seed, noise, p), 5)]), **bounds)
+    print(f"[{name}] {times_line(row)}; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+          f"{row['volume_elements']} volume elements), chain of {row['chain_trips']} dependent L2 "
+          f"round trips ({row['chain_ms']:.5f} ms at the chase's latency)")
+    return row
 
 
 def accuracy(disp: torch.Tensor) -> tuple[float, float]:
@@ -543,11 +622,14 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
     return launches, disp, runs
 
 
-def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, tag="graph") -> float:
+def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, match: tuple,
+                tag="graph") -> float:
     """perception_step captured whole in one CUDA graph, then replayed over
     N_FRAMES perturbed frames copied into its input, every output consumed
     as in phase_end_to_end; frame 0's replayed disparity must equal the call
-    path's bit for bit. Returns the replay's ms/frame."""
+    path's bit for bit. Prints the match's share of the replayed frame
+    (match: its launch name and graph-replay ms). Returns the replay's
+    ms/frame."""
     dev = left_rgb.device
     frames = [left_rgb + float(i) * 1e-6 for i in range(N_FRAMES)]
     static_left = frames[0].clone()
@@ -578,7 +660,8 @@ def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, tag="graph") 
     print(f"[{tag}] one CUDA graph a frame, {N_FRAMES} frames: {ms_frame:.3f} ms/frame "
           f"({1000.0 / ms_frame:.1f} fps) against {statistics.median(call_runs):.3f} ms/frame "
           f"by calls (median of {len(call_runs)} runs); digest {float(digest):.6e}; "
-          f"frame 0's disparity equal to the call path's")
+          f"frame 0's disparity equal to the call path's; the match ({match[0]}, "
+          f"{1e3 * match[1]:.2f} us by graph replay) {100.0 * match[1] / ms_frame:.2f}% of the frame")
     return ms_frame
 
 
@@ -633,10 +716,10 @@ def phase_cpu_parity(left_rgb, right_rgb, rig, config, disp_gpu: torch.Tensor) -
         raise AssertionError("card and CPU disparities disagree")
 
 
-def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict:
-    """build_volumes (bf16 and float32) and each strip-layout PatchMatch
-    kernel against its plain twin on identical inputs at 720p shapes, then
-    the whole strip-volume match against its twins and the (H, W, D) match."""
+def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dict) -> dict:
+    """build_volumes (bf16 and float32) and pm_match_strip against their
+    plain twins on identical inputs at 720p shapes, the match also against
+    the (H, W, D) match."""
     dev = left_rgb.device
     iml = pyr_down(to_grayscale(left_rgb))
     imr = pyr_down(to_grayscale(right_rgb))
@@ -671,78 +754,22 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor) -> dict
     C = sc.volume_from_col_strips(vc)
     seed = pm.sparse_wta_seed(C, p)
     noise = pm.unit_noise(iml.shape, p.noise_seed, device=dev)
-    scale, pr = p.noise_scale0, p.patch_radius
-    bounds = pm_bounds(Hs, Ws, D, vc.element_size(), p)
+    def plain_volumes(v):
+        return sc.volume_from_row_strips(v[0]), sc.volume_from_col_strips(v[1])
 
-    d_k, c_k = cuda.pm_refresh_strip(vc, seed, noise, scale, pr)
-    d_p, c_p = pm._refresh_strip_plain(vc, seed, noise, scale, pr)
-    require_equal("pm_refresh_strip disp", d_k, d_p)
-    require_equal("pm_refresh_strip cost", c_k, c_p)
-    rows["pm_refresh_strip"] = dict(
-        max_abs_err=max(max_abs(d_k, d_p), max_abs(c_k, c_p)),
-        **summarize([measure("pm_refresh_strip",
-                             lambda: cuda.pm_refresh_strip(vc, seed, noise, scale, pr),
-                             lambda: pm._refresh_strip_plain(vc, seed, noise, scale, pr))]),
-        **bounds["refresh"])
-
-    err = 0.0
-    for dtype, (v_row, v_col) in vols.items():
-        def layout(axis, v_row=v_row, v_col=v_col):
-            return v_row if axis == 1 else v_col
-
-        err = max(err, check_passes(
-            f"pm_propagate_strip {dtype}",
-            lambda d, c, direction, axis: cuda.pm_propagate_strip(layout(axis), d, c, direction,
-                                                                  axis, p.halo, pr),
-            lambda d, c, direction, axis: pm._propagate_strip_plain(layout(axis), d, c,
-                                                                    direction, axis, p),
-            {"seeded": pm._refresh_strip_plain(v_col, seed, noise, scale, pr),
-             "adversarial": adversarial_fronts(v_col, (Hs, Ws))}))
-    calls = []
-    for direction, axis in PASSES:
-        V = vr if axis == 1 else vc
-        calls.append(measure(
-            "pm_propagate_strip",
-            lambda: cuda.pm_propagate_strip(V, d_p, c_p, direction, axis, p.halo, pr),
-            lambda: pm._propagate_strip_plain(V, d_p, c_p, direction, axis, p)))
-        print(f"[strips] pm_propagate_strip dir={direction:+d} axis={axis}: "
-              f"{times_line(calls[-1])}, {V.shape[1]} strips")
-    rows["pm_propagate_strip"] = dict(max_abs_err=err, **summarize(calls), **bounds["propagate"])
-
-    final = pm._propagate_strip_plain(vc, d_p, c_p, -1, 0, p)[0]
-    m_k = cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr)
-    m_p = pm.mask_background_strip_plain(vc, final, p)
-    require_equal("pm_mask_background_strip", m_k, m_p)
-    rows["pm_mask_background_strip"] = dict(
-        max_abs_err=max_abs(m_k, m_p),
-        **summarize([measure("pm_mask_background_strip",
-                             lambda: cuda.pm_mask_background_strip(vc, final, p.improve_factor, pr),
-                             lambda: pm.mask_background_strip_plain(vc, final, p))]),
-        **bounds["mask"])
-
-    # The whole strip-volume match (K3' over K4's layouts): kernels vs twins.
-    def match_plain():
-        disp = seed
-        for it in range(p.iters):
-            disp, cost = pm._refresh_strip_plain(vc, disp, noise, p.noise_scale0 / 2.0**it, pr)
-            for direction, axis in PASSES:
-                V = vr if axis == 1 else vc
-                disp, cost = pm._propagate_strip_plain(V, disp, cost, direction, axis, p)
-        return pm.mask_background_strip_plain(vc, disp, p)
-
-    full_k, full_p = pm._match_one_side_strips(vr, vc, seed, noise, p), match_plain()
-    require_equal("match_one_side_strips", full_k, full_p)
-    require_equal("match_one_side_strips vs the (H, W, D) match", full_k,
+    rows["pm_match_strip"] = check_match(
+        "pm_match_strip", vols, seed, noise, p,
+        lambda v, s, n: pm._match_one_side_strips(*v, s, n, p), plain_volumes,
+        match_bound(*plain_volumes(vols[torch.bfloat16]), seed, noise, p, 1, l2))
+    full = pm._match_one_side_strips(vr, vc, seed, noise, p)
+    require_equal("pm_match_strip vs the (H, W, D) match", full,
                   pm._match_one_side(C, seed, noise, p))
-    k_ms = call_ms(lambda: pm._match_one_side_strips(vr, vc, seed, noise, p))
     hwd_ms = call_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    k_dev = graph_ms(lambda: pm._match_one_side_strips(vr, vc, seed, noise, p))
     hwd_dev = graph_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    p_ms = call_ms(match_plain, 5)
-    print(f"[strips] match_one_side_strips (3 refresh + 12 passes + mask): call {k_ms:.4f} ms "
-          f"vs (H, W, D) match {hwd_ms:.4f} ms; device (graph replay) {k_dev:.4f} vs "
-          f"{hwd_dev:.4f} ms; plain {p_ms:.4f} ms, "
-          f"valid {(full_k > 0).float().mean().item():.3f}")
+    print(f"[strips] pm_match_strip: call {rows['pm_match_strip']['call_ms']:.4f} ms vs the (H, W, "
+          f"D) match's {hwd_ms:.4f} ms; device (graph replay) "
+          f"{rows['pm_match_strip']['graph_ms']:.4f} vs {hwd_dev:.4f} ms; equal to it, "
+          f"valid {(full > 0).float().mean().item():.3f}")
     # The dense half on each layout, in turns (H, W, D), strips, strips,
     # (H, W, D): the volume build, seed, match, right WTA and subpixel.
     p_hwd = dataclasses.replace(p, use_strip_volumes=False)
@@ -782,10 +809,10 @@ def phase_engines(left_rgb, right_rgb, rig) -> dict:
             device=dev).disparity, {"cost_volume": 1}),
         "patchmatch two-sided": (lambda l, r, dev: dense_disparity(l, r, pm.PatchMatchParams(
             max_disp=D, right_wta=False, volume_bf16=True), dev),
-            {"cost_volume": 1, "pm_refresh": 6, "pm_propagate": 24, "pm_mask_background": 2}),
+            {"cost_volume": 1, "pm_match": 2}),
         "patchmatch zncc": (lambda l, r, dev: dense_disparity(l, r, pm.PatchMatchParams(
             max_disp=D, right_wta=True, cost="zncc"), dev),
-            {"pm_refresh": 3, "pm_propagate": 12, "pm_mask_background": 1}),
+            {"pm_match": 1}),
     }
     dev = left_rgb.device
     results = {}
@@ -1211,19 +1238,22 @@ def main() -> int:
     rig = StereoCamera.create(cam, cam, baseline=0.12)
     config = PerceptionConfig(engine="patchmatch", max_disp=MAX_DISP, internal_scale=SCALE)
 
-    rows = phase_kernels(left_rgb, right_rgb)
+    l2 = l2_latency(dev)
+    rows = phase_kernels(left_rgb, right_rgb, l2)
     launches, disp, runs = phase_end_to_end(left_rgb, right_rgb, rig, config)
-    phase_graph(left_rgb, right_rgb, rig, config, disp, runs)
+    phase_graph(left_rgb, right_rgb, rig, config, disp, runs,
+                ("pm_match", rows["pm_match"]["graph_ms"]))
     phase_stage_times(left_rgb, right_rgb, rig, config)
     phase_cpu_parity(left_rgb, right_rgb, rig, config, disp)
 
-    rows.update(phase_strip_kernels(left_rgb, right_rgb))
+    rows.update(phase_strip_kernels(left_rgb, right_rgb, l2))
     strip_config = dataclasses.replace(config, use_strip_volumes=True)
     strip_launches, strip_disp, strip_runs = phase_end_to_end(left_rgb, right_rgb, rig,
                                                               strip_config, "strip e2e",
                                                               PER_STRIP_FRAME)
     require_equal("strip-volume perception disparity vs the (H, W, D) path's", strip_disp, disp)
-    phase_graph(left_rgb, right_rgb, rig, strip_config, disp, strip_runs, "strip graph")
+    phase_graph(left_rgb, right_rgb, rig, strip_config, disp, strip_runs,
+                ("pm_match_strip", rows["pm_match_strip"]["graph_ms"]), "strip graph")
     phase_engines(left_rgb, right_rgb, rig)
 
     fe = phase_frontend(canvas, rig, config, dev)
@@ -1232,9 +1262,9 @@ def main() -> int:
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
 
-    # Launches on each kernel's own path: the (H, W, D) PatchMatch kernels'
-    # from perception_step, the strip kernels' from perception_step with
-    # strip volumes, LK's from full_frontend_step.
+    # Launches on each kernel's own path: cost_volume's and pm_match's from
+    # perception_step, build_volumes' and pm_match_strip's from
+    # perception_step with strip volumes, LK's from full_frontend_step.
     launches.update({k: strip_launches[k] for k in PER_STRIP_FRAME})
     launches["lk_track"] = fe["launches"]["lk_track"]
     kernels = [

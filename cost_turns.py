@@ -9,7 +9,7 @@ the three files of the version to compare with, for example written there
 with ``git show <commit>:ocean_perception_tpu_torch/csrc/<file>``); those of
 each ``--compare NAME=DIR``; this checkout's sources; and each entry of
 ``VARIANTS``, this checkout's sources with another tile. Each build goes
-into ``ocean_perception_tpu_torch/_build/turns/``.
+into ``ocean_perception_tpu_torch/_build/cost_turns/`` (``turns.py``).
 
 Every build's ``cost_volume`` and ``build_volumes`` are checked bit for bit
 against their plain twins at the 720p shapes of ``chip_smoke.py`` (bf16 and
@@ -27,12 +27,8 @@ Run: ``python cost_turns.py [--parent DIR] [--compare NAME=DIR ...]`` (needs one
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
-import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -40,6 +36,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+import turns
 from ocean_perception_tpu_torch.ops import cuda
 from ocean_perception_tpu_torch.ops.image import gradient_magnitude, pyr_down, to_grayscale
 from ocean_perception_tpu_torch.stereo import cost as sc
@@ -55,32 +52,14 @@ VARIANTS = {
 }
 
 
-def build(name: str, src_dir, edits=()) -> ctypes.CDLL:
+def build(name: str, src_dir, edits=()) -> turns.Build:
     """The three files from src_dir, edits applied, as one library with the
     two cost-volume entry points."""
-    out_dir = cuda._BUILD / "turns" / re.sub(r"\W+", "_", name)
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    texts = {f: (src_dir / f).read_text() for f in FILES}
-    for f, old, new in edits:
-        if texts[f].count(old) != 1:
-            raise RuntimeError(f"{name}: {f} must hold {old!r} exactly once")
-        texts[f] = texts[f].replace(old, new)
-    for f, text in texts.items():
-        (out_dir / f).write_text(text)
-    lib = out_dir / "lib.so"
-    proc = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
-                           str(lib), str(out_dir / FILES[0]), str(out_dir / FILES[1])],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    usage = re.findall(r"Used \d+ registers[^\n]*|\d+ bytes spill stores", proc.stderr)
-    print(f"[build] {name}: {sorted(set(usage))}")
-    dll = ctypes.CDLL(str(lib))
-    for fn in ("opt_cost_volume", "opt_build_volumes"):
-        getattr(dll, fn).argtypes = cuda._SIGNATURES[fn]
-        getattr(dll, fn).restype = ctypes.c_int
-    return dll
+    texts = {f: turns.edited((src_dir / f).read_text(),
+                             [(old, new) for g, old, new in edits if g == f], f"{name}: {f}")
+             for f in FILES}
+    return turns.Build(texts, {fn: cuda._SIGNATURES[fn]
+                               for fn in ("opt_cost_volume", "opt_build_volumes")})
 
 
 def main() -> int:
@@ -116,9 +95,10 @@ def main() -> int:
         calls[("build_volumes", dt)] = lambda dt=dt: cuda.build_volumes(
             iml, imr, gl, gr, D, a, b, g.chunks_x, g.chunks_y, dt)
 
-    libs = {name: build(name, d) for name, d in sources.items()}
-    libs["this"] = build("this", cuda._CSRC)
-    libs.update({name: build(name, cuda._CSRC, edits) for name, edits in VARIANTS.items()})
+    builds = {name: build(name, d) for name, d in sources.items()}
+    builds["this"] = build("this", cuda._CSRC)
+    builds.update({name: build(name, cuda._CSRC, edits) for name, edits in VARIANTS.items()})
+    libs = turns.build_all("cost_turns", builds)
     for name, lib in libs.items():
         cuda.library = lambda lib=lib: lib
         for dt in dtypes:
@@ -129,15 +109,13 @@ def main() -> int:
               f"in bf16 and float32")
 
     times = {(name, key): [] for name in libs for key in calls}
-    order = list(libs)
-    for turn in (order, order[::-1]):
-        for name in turn:
-            cuda.library = lambda lib=libs[name]: lib
-            for (kernel, dt), fn in calls.items():
-                t = (cs.profiler_ms(kernel, fn), cs.graph_ms(fn))
-                times[(name, (kernel, dt))].append(t)
-                print(f"[turns] {name} {kernel} {dt}: device {cs.fmt_ms(t[0])} (profiler), "
-                      f"{t[1]:.5f} ms (graph replay)")
+    for _, name in turns.turn_order(libs):
+        cuda.library = lambda lib=libs[name]: lib
+        for (kernel, dt), fn in calls.items():
+            t = (cs.profiler_ms(kernel, fn), cs.graph_ms(fn))
+            times[(name, (kernel, dt))].append(t)
+            print(f"[turns] {name} {kernel} {dt}: device {cs.fmt_ms(t[0])} (profiler), "
+                  f"{t[1]:.5f} ms (graph replay)")
 
     result = {}
     for (name, (kernel, dt)), ts in times.items():

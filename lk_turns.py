@@ -9,7 +9,7 @@ the earlier version's ``lk.cu`` with its per-level entry points
 ``git show <commit>:ocean_perception_tpu_torch/csrc/lk.cu``); this
 checkout's source (``opt_lk_track``); and each entry of ``VARIANTS``, this
 checkout's source with one part of its design taken out. Each build goes
-into ``ocean_perception_tpu_torch/_build/turns_lk/``.
+into ``ocean_perception_tpu_torch/_build/lk_turns/`` (``turns.py``).
 
 The frame is the one ``chip_smoke.py`` records: ``full_frontend_step`` at
 720p on its moving sequence, 4 warm-up frames, then frame 4's two
@@ -22,8 +22,8 @@ Every build's points and status are checked bit for bit against
 ``lk_track_plain`` first. Then a frame is timed by ``torch.profiler`` (the
 device time of all its kernels) and by CUDA-graph replay (its launches
 captured in one graph, gaps included), in turns: the builds in order, then
-again (parent, this, variants..., parent, this, variants...), so that the
-card's drift shows.
+in reverse (parent, this, variants..., variants..., this, parent), so that
+the card's drift shows.
 
 Last, this checkout's kernel is built once more with ``clock64()`` stamps
 at its stage boundaries (``stamped``) and run on the frame: per direction,
@@ -40,17 +40,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 
 import chip_smoke as cs
+import turns
 from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
 from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
 from ocean_perception_tpu_torch.mesher.object_mesher import ObjectMesherDeviceParams
@@ -95,15 +92,10 @@ STAGES = ("template fetch", "recentring", "gradients", "window sums", "inverse")
 def stamped(text: str) -> str:
     """lk.cu with thread 0 of every block writing clock64() into
     g_stamps[block][slot] at each of STAMPS, and opt_stamps to read them."""
-    for line, slot in STAMPS:
-        if text.count(line) != 1:
-            raise RuntimeError(f"lk.cu must hold {line!r} exactly once")
-        text = text.replace(line, f"  if (threadIdx.x == 0) g_stamps[blockIdx.x * {N_SLOTS} + "
-                                  f"{slot}] = clock64();\n" + line)
-    anchor = "namespace {\n"
-    return (text.replace(anchor, anchor + f"__device__ long long g_stamps[4096 * {N_SLOTS}];\n", 1)
-            + "\nextern \"C\" int opt_stamps(long long* out) {\n"
-            f"  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(long long) * 4096 * {N_SLOTS});\n}}\n")
+    text = turns.edited(text, [(line, f"  if (threadIdx.x == 0) g_stamps[blockIdx.x * {N_SLOTS} + "
+                                      f"{slot}] = clock64();\n" + line) for line, slot in STAMPS],
+                        "lk.cu")
+    return turns.with_stamps(text, "long long", 4096 * N_SLOTS)
 
 
 def stage_cycles(lib, calls: list) -> None:
@@ -129,25 +121,6 @@ def stage_cycles(lib, calls: list) -> None:
         parts.append(("total", prev - t[:, 0]))
         print(f"[stages] {direction}, cycles a block (mean/max): "
               + ", ".join(f"{n} {float(v.mean()):.0f}/{float(v.max()):.0f}" for n, v in parts))
-
-
-def build(name: str, text: str, signatures: dict) -> ctypes.CDLL:
-    out_dir = cuda._BUILD / "turns_lk" / re.sub(r"\W+", "_", name)
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    (out_dir / "lk.cu").write_text(text)
-    lib = out_dir / "lib.so"
-    proc = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
-                           str(lib), str(out_dir / "lk.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    usage = re.findall(r"Used \d+ registers[^\n]*|\d+ bytes stack frame[^\n]*", proc.stderr)
-    print(f"[build] {name}: {sorted(set(usage))}")
-    dll = ctypes.CDLL(str(lib))
-    for fn, argtypes in signatures.items():
-        getattr(dll, fn).argtypes = argtypes
-        getattr(dll, fn).restype = ctypes.c_int
-    return dll
 
 
 def record_frame() -> list:
@@ -239,27 +212,6 @@ def parent_direction(prep, walk, args, kwargs):
     return guess, ok
 
 
-def frame_profiler_us(fn, names: set, n: int = cs.N_TIMED) -> float | None:
-    """Device time of one frame in us: torch.profiler over n calls of fn(),
-    every kernel's device time over n. None where it recorded none. Fails
-    if the window ran a kernel not in names."""
-    fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if not any(name in e.key for name in names):
-            raise AssertionError(f"the profiled window also ran {e.key!r}")
-        total += e.device_time_total
-    return total / n if total > 0 else None
-
-
 def require_flow(tag: str, got, want) -> None:
     for a, b in zip(got, want):
         cs.require_equal(tag, a.float().nan_to_num(-1e30), b.float().nan_to_num(-1e30))
@@ -280,16 +232,15 @@ def main() -> int:
         raise AssertionError(f"expected a forward and a backward lk_track, got {len(calls)} calls")
     want = [lk.lk_track_plain(*a, **kw) for _, a, kw, _ in calls]
 
-    libs = {"parent": build("parent", parent_src.read_text(), PARENT_SIGNATURES)}
     sig = {"opt_lk_track": cuda._SIGNATURES["opt_lk_track"]}
-    libs["this"] = build("this", this_src, sig)
-    for name, edits in VARIANTS.items():
-        text = this_src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: lk.cu must hold {old!r} exactly once")
-            text = text.replace(old, new)
-        libs[name] = build(name, text, sig)
+    builds = {"parent": turns.Build({"lk.cu": parent_src.read_text()}, PARENT_SIGNATURES),
+              "this": turns.Build({"lk.cu": this_src}, sig)}
+    builds.update((name, turns.Build({"lk.cu": turns.edited(this_src, edits, f"{name}: lk.cu")},
+                                     sig)) for name, edits in VARIANTS.items())
+    builds["stamped"] = turns.Build({"lk.cu": stamped(this_src)},
+                                    dict(sig, opt_stamps=[ctypes.c_void_p]))
+    libs = turns.build_all("lk_turns", builds)
+    stamps = libs.pop("stamped")
 
     # A check of every build, and the parent's frame as its launches, each
     # launch checked against its twin on the same inputs.
@@ -332,21 +283,19 @@ def main() -> int:
             cuda.lk_track(*launch)
 
     times = {name: [] for name in libs}
-    for _ in range(2):
-        for name, lib in libs.items():
-            if name == "parent":
-                fn, kernels = parent_frame, {"lk_prep_kernel", "lk_walk_kernel"}
-            else:
-                cuda.library = lambda lib=lib: lib
-                fn, kernels = this_frame, {"lk_track_kernel"}
-            t = (frame_profiler_us(fn, kernels), 1e3 * cs.graph_ms(fn))
-            times[name].append(t)
-            print(f"[turns] {name}: a frame's LK {cs.fmt_ms(None if t[0] is None else t[0] / 1e3)} "
-                  f"(profiler), {t[1] / 1e3:.5f} ms (graph replay)")
+    for _, name in turns.turn_order(libs):
+        if name == "parent":
+            fn, kernels = parent_frame, {"lk_prep_kernel", "lk_walk_kernel"}
+        else:
+            cuda.library = lambda lib=libs[name]: lib
+            fn, kernels = this_frame, {"lk_track_kernel"}
+        ms = turns.kernels_ms(fn, cs.N_TIMED, kernels)
+        t = (None if ms is None else 1e3 * ms, 1e3 * cs.graph_ms(fn))
+        times[name].append(t)
+        print(f"[turns] {name}: a frame's LK {cs.fmt_ms(ms)} (profiler), "
+              f"{t[1] / 1e3:.5f} ms (graph replay)")
 
-    stage_cycles(build("stamped", stamped(this_src),
-                       {"opt_lk_track": cuda._SIGNATURES["opt_lk_track"],
-                        "opt_stamps": [ctypes.c_void_p]}), calls)
+    stage_cycles(stamps, calls)
 
     result = {}
     for name, ts in times.items():

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.cameras import StereoCamera
+from ..ops.cuda import entry_device
 from ..ops.interp import bilinear_sample
 from ..tracking.stereo_tracker import (StereoTrackerParams, StereoTrackerState, device_scalar,
                                       track_and_triangulate)
@@ -126,12 +127,14 @@ class ObjectMesherParams:
 
 class ObjectMesher:
     """Host wrapper: the device step, then per-cluster Delaunay and
-    back-projection. Runs on ``device`` (the CPU by default)."""
+    back-projection. Runs on ``device``: the card by default, where it
+    raises without one; CPU callers pass ``device="cpu"``."""
 
-    def __init__(self, params: ObjectMesherParams, rig: StereoCamera, device=None):
+    def __init__(self, params: ObjectMesherParams, rig: StereoCamera,
+                 device: torch.device | str = "cuda"):
         self.params = params
         self.rig = rig
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = entry_device(device)
         capacity = params.device.tracker.capacity
         self.tracker_state = StereoTrackerState.create(params.device.tracker, device=self.device)
         self.graph = LandmarkGraph.create(capacity, device=self.device)

@@ -21,6 +21,7 @@ import torch
 
 from ..core.cameras import StereoCamera
 from ..imaging.enhance import EnhanceParams, enhance_underwater
+from ..ops.cuda import entry_device
 from ..ops.image import pyr_down, resize, to_grayscale
 from ..stereo.api import StereoEngine, estimate_disparity
 from ..stereo.patchmatch import PatchMatchParams
@@ -48,14 +49,6 @@ class PerceptionOutput(NamedTuple):
     enhanced_left: torch.Tensor  # (H, W, 3) enhanced left RGB
 
 
-def _device(device) -> torch.device:
-    """The entry points' device; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return device
-
-
 def perception_step(
     left_rgb: torch.Tensor,
     right_rgb: torch.Tensor,
@@ -66,7 +59,7 @@ def perception_step(
     """One frame through the dense-vision stack, on ``device``."""
     if config.engine not in ("patchmatch", "sgm", "wta"):
         raise ValueError(f"unknown stereo engine {config.engine!r}")
-    device = _device(device)
+    device = entry_device(device)
     left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
     right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
     H, W = left_rgb.shape[0], left_rgb.shape[1]
@@ -146,7 +139,7 @@ def full_frontend_step(
     if mesher_scale < 1 or (mesher_scale & (mesher_scale - 1)):
         raise ValueError(f"mesher_scale must be a power of two, got {mesher_scale}")
     mesher_params = mesher_params or ObjectMesherDeviceParams()
-    device = _device(device)
+    device = entry_device(device)
     left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
     right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
     prev_left_gray = torch.as_tensor(prev_left_gray, dtype=torch.float32, device=device)

@@ -14,8 +14,8 @@ wrappers only take CUDA tensors; the plain PyTorch twins live beside the
 public functions that dispatch to them (``stereo/cost.py``,
 ``stereo/patchmatch.py``, ``tracking/lk.py``).
 
-The ``*_strip`` PatchMatch wrappers launch the same kernels as their
-namesakes, reading the volume in a strip layout; each has its own entry in
+``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
+volume in the two strip layouts; each has its own entry in
 :data:`LAUNCHES`, so a run shows which layout the match went through.
 """
 
@@ -44,14 +44,21 @@ NVCC_FLAGS = (
 
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
-LAUNCHES = {"cost_volume": 0, "pm_refresh": 0, "pm_propagate": 0, "pm_mask_background": 0,
-            "build_volumes": 0, "pm_refresh_strip": 0, "pm_propagate_strip": 0,
-            "pm_mask_background_strip": 0, "lk_track": 0}
+LAUNCHES = {"cost_volume": 0, "pm_match": 0, "build_volumes": 0, "pm_match_strip": 0,
+            "lk_track": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def entry_device(device) -> torch.device:
+    """An entry point's device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
 
 
 def _nvcc() -> str:
@@ -110,13 +117,9 @@ def build(verbose: bool = False) -> Path:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "opt_cost_volume": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
-    "opt_pm_refresh": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
-    "opt_pm_propagate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "opt_pm_mask_background": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "opt_pm_match": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
     "opt_build_volumes": [_P] * 6 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P],
-    "opt_pm_refresh_strip": [_P, _P, _P, _F, _P, _P] + [_I] * 6 + [_P],
-    "opt_pm_propagate_strip": [_P] * 5 + [_I] * 9 + [_P],
-    "opt_pm_mask_background_strip": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
+    "opt_pm_match_strip": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
 }
 
 
@@ -195,56 +198,42 @@ def cost_volume(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float,
     return out
 
 
-def pm_refresh(C, disp, noise, scale: float, patch_radius: int):
-    """Foreground noise plus cost-map refresh: returns (disp', cost of disp')."""
-    H, W, D, bf16 = _volume_dims(C)
-    _require(disp, "disp", (torch.float32,), (H, W))
+def _match_buffers(seed, noise, dtype):
+    """The match's two front buffers, (2, H, W) in float32 and in the
+    volume's dtype, and its (H, W) output."""
+    H, W = seed.shape
+    _require(seed, "seed", (torch.float32,))
     _require(noise, "noise", (torch.float32,), (H, W))
-    disp_out = torch.empty_like(disp)
-    cost_out = torch.empty((H, W), dtype=C.dtype, device=C.device)
-    with torch.cuda.device(C.device):
-        err = library().opt_pm_refresh(
-            C.data_ptr(), disp.data_ptr(), noise.data_ptr(), scale, disp_out.data_ptr(),
-            cost_out.data_ptr(), H, W, D, patch_radius, bf16, _stream(C))
-    _check(err, "pm_refresh")
-    LAUNCHES["pm_refresh"] += 1
-    return disp_out, cost_out
+    return (torch.empty((2, H, W), dtype=torch.float32, device=seed.device),
+            torch.empty((2, H, W), dtype=dtype, device=seed.device), torch.empty_like(seed))
 
 
-def pm_propagate(C, disp, cost, direction: int, axis: int, chunks: int, halo: int,
-                 patch_radius: int):
-    """One directional strip pass: returns the new (disp, cost)."""
+def _match_checks(iters: int, chunks_x: int, chunks_y: int, H: int, W: int) -> None:
+    if iters < 1:
+        raise ValueError(f"the match kernel needs iters >= 1, got {iters}")
+    if chunks_x < 1 or W % chunks_x or chunks_y < 1 or H % chunks_y:
+        raise ValueError(f"{chunks_x} x {chunks_y} strips do not tile a {H}x{W} image")
+
+
+def pm_match(C, seed, noise, iters: int, noise_scale0: float, chunks_x: int, chunks_y: int,
+             halo: int, patch_radius: int, improve_factor: float) -> torch.Tensor:
+    """The whole one-side PatchMatch match over the (H, W, D) volume C, one
+    launch: per iteration the noise and cost refresh and the passes R+ C+ R-
+    C- (row passes in chunks_x strips, column passes in chunks_y), then
+    MaskBackground. Returns the masked (H, W) disparity; see
+    stereo/patchmatch.py::_match_plain."""
     H, W, D, bf16 = _volume_dims(C)
-    _require(disp, "disp", (torch.float32,), (H, W))
-    _require(cost, "cost", (C.dtype,), (H, W))
-    if axis not in (0, 1) or direction not in (1, -1):
-        raise ValueError(f"bad pass axis={axis} direction={direction}")
-    dim = W if axis == 1 else H
-    if chunks < 1 or dim % chunks:
-        raise ValueError(f"{chunks} strips do not tile an axis of {dim}")
-    disp_out = torch.empty_like(disp)
-    cost_out = torch.empty_like(cost)
+    if tuple(seed.shape) != (H, W):
+        raise ValueError(f"seed must have shape {(H, W)}, got {tuple(seed.shape)}")
+    _match_checks(iters, chunks_x, chunks_y, H, W)
+    disp, cost, out = _match_buffers(seed, noise, C.dtype)
     with torch.cuda.device(C.device):
-        err = library().opt_pm_propagate(
-            C.data_ptr(), disp.data_ptr(), cost.data_ptr(), disp_out.data_ptr(),
-            cost_out.data_ptr(), H, W, D, axis, int(direction > 0), chunks, dim // chunks,
-            halo, patch_radius, bf16, _stream(C))
-    _check(err, "pm_propagate")
-    LAUNCHES["pm_propagate"] += 1
-    return disp_out, cost_out
-
-
-def pm_mask_background(C, disp, improve_factor: float, patch_radius: int) -> torch.Tensor:
-    """Zero disparities that do not beat improve_factor * cost(0) (interior only)."""
-    H, W, D, bf16 = _volume_dims(C)
-    _require(disp, "disp", (torch.float32,), (H, W))
-    out = torch.empty_like(disp)
-    with torch.cuda.device(C.device):
-        err = library().opt_pm_mask_background(
-            C.data_ptr(), disp.data_ptr(), out.data_ptr(), H, W, D, patch_radius,
+        err = library().opt_pm_match(
+            C.data_ptr(), seed.data_ptr(), noise.data_ptr(), disp.data_ptr(), cost.data_ptr(),
+            out.data_ptr(), H, W, D, chunks_x, chunks_y, halo, patch_radius, iters, noise_scale0,
             improve_factor, bf16, _stream(C))
-    _check(err, "pm_mask_background")
-    LAUNCHES["pm_mask_background"] += 1
+    _check(err, "pm_match")
+    LAUNCHES["pm_match"] += 1
     return out
 
 
@@ -273,69 +262,36 @@ def build_volumes(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float, ch
     return V_row, V_col
 
 
-def _strip_dims(V: torch.Tensor, disp: torch.Tensor, axis: int):
-    """(H, W, D, chunks, bf16) of a strip layout for (H, W) fronts: V_col
-    (chunk, chunks, D, W) for axis 0, V_row (chunk, chunks, D, H) for axis 1."""
-    _require(V, "V", (torch.float32, torch.bfloat16))
-    _require(disp, "disp", (torch.float32,))
-    if V.ndim != 4 or disp.ndim != 2:
-        raise ValueError(f"need a 4-d strip volume and (H, W) fronts, got {tuple(V.shape)} "
-                         f"and {tuple(disp.shape)}")
-    H, W = disp.shape
-    chunk, chunks, D, N = V.shape
-    dim, lanes = (W, H) if axis == 1 else (H, W)
-    if N != lanes or chunk * chunks != dim:
-        raise ValueError(f"strip volume {tuple(V.shape)} does not fit {H}x{W} fronts "
-                         f"along axis {axis}")
-    if V.numel() >= 2**31:
-        raise ValueError("volume too large for 32-bit pixel indexing")
-    return H, W, D, chunks, int(V.dtype == torch.bfloat16)
-
-
-def pm_refresh_strip(V_col, disp, noise, scale: float, patch_radius: int):
-    """pm_refresh over V_col (chunk_y, chunks_y, D, W)."""
-    H, W, D, chunks, bf16 = _strip_dims(V_col, disp, 0)
-    _require(noise, "noise", (torch.float32,), (H, W))
-    disp_out = torch.empty_like(disp)
-    cost_out = torch.empty((H, W), dtype=V_col.dtype, device=V_col.device)
-    with torch.cuda.device(V_col.device):
-        err = library().opt_pm_refresh_strip(
-            V_col.data_ptr(), disp.data_ptr(), noise.data_ptr(), scale, disp_out.data_ptr(),
-            cost_out.data_ptr(), H, W, D, chunks, patch_radius, bf16, _stream(V_col))
-    _check(err, "pm_refresh_strip")
-    LAUNCHES["pm_refresh_strip"] += 1
-    return disp_out, cost_out
-
-
-def pm_propagate_strip(V, disp, cost, direction: int, axis: int, halo: int, patch_radius: int):
-    """pm_propagate over V_row (axis 1, a row pass) or V_col (axis 0); the
-    pass's strips are the layout's."""
-    if axis not in (0, 1) or direction not in (1, -1):
-        raise ValueError(f"bad pass axis={axis} direction={direction}")
-    H, W, D, chunks, bf16 = _strip_dims(V, disp, axis)
-    _require(cost, "cost", (V.dtype,), (H, W))
-    disp_out = torch.empty_like(disp)
-    cost_out = torch.empty_like(cost)
-    with torch.cuda.device(V.device):
-        err = library().opt_pm_propagate_strip(
-            V.data_ptr(), disp.data_ptr(), cost.data_ptr(), disp_out.data_ptr(),
-            cost_out.data_ptr(), H, W, D, axis, int(direction > 0), chunks, halo, patch_radius,
-            bf16, _stream(V))
-    _check(err, "pm_propagate_strip")
-    LAUNCHES["pm_propagate_strip"] += 1
-    return disp_out, cost_out
-
-
-def pm_mask_background_strip(V_col, disp, improve_factor: float, patch_radius: int) -> torch.Tensor:
-    """pm_mask_background over V_col (chunk_y, chunks_y, D, W)."""
-    H, W, D, chunks, bf16 = _strip_dims(V_col, disp, 0)
-    out = torch.empty_like(disp)
-    with torch.cuda.device(V_col.device):
-        err = library().opt_pm_mask_background_strip(
-            V_col.data_ptr(), disp.data_ptr(), out.data_ptr(), H, W, D, chunks, patch_radius,
-            improve_factor, bf16, _stream(V_col))
-    _check(err, "pm_mask_background_strip")
-    LAUNCHES["pm_mask_background_strip"] += 1
+def pm_match_strip(V_row, V_col, seed, noise, iters: int, noise_scale0: float, halo: int,
+                   patch_radius: int, improve_factor: float) -> torch.Tensor:
+    """pm_match over the strip layouts of stereo/cost.py: row passes read
+    V_row (chunk_x, chunks_x, D, H), column passes V_col (chunk_y, chunks_y,
+    D, W); the passes' strips are the layouts' strips."""
+    for name, t in (("V_row", V_row), ("V_col", V_col)):
+        _require(t, name, (torch.float32, torch.bfloat16))
+        if t.ndim != 4:
+            raise ValueError(f"{name} must be a 4-d strip volume, got {tuple(t.shape)}")
+        if t.numel() >= 2**31:
+            raise ValueError("volume too large for 32-bit pixel indexing")
+    if seed.ndim != 2:
+        raise ValueError(f"seed must be (H, W), got {tuple(seed.shape)}")
+    H, W = seed.shape
+    chunk_x, chunks_x, D, h = V_row.shape
+    chunk_y, chunks_y, d, w = V_col.shape
+    if (h, w, d, V_col.dtype) != (H, W, D, V_row.dtype) or chunk_x * chunks_x != W \
+            or chunk_y * chunks_y != H:
+        raise ValueError(f"strip volumes {tuple(V_row.shape)} and {tuple(V_col.shape)} do not "
+                         f"fit {H}x{W} fronts in one dtype")
+    _match_checks(iters, chunks_x, chunks_y, H, W)
+    disp, cost, out = _match_buffers(seed, noise, V_row.dtype)
+    with torch.cuda.device(V_row.device):
+        err = library().opt_pm_match_strip(
+            V_row.data_ptr(), V_col.data_ptr(), seed.data_ptr(), noise.data_ptr(),
+            disp.data_ptr(), cost.data_ptr(), out.data_ptr(), H, W, D, chunks_x, chunks_y, halo,
+            patch_radius, iters, noise_scale0, improve_factor,
+            int(V_row.dtype == torch.bfloat16), _stream(V_row))
+    _check(err, "pm_match_strip")
+    LAUNCHES["pm_match_strip"] += 1
     return out
 
 

@@ -5,17 +5,18 @@ Reference semantics (patchmatch_gpu.cu, SURVEY.md §A.2): per iteration
 PropagateRow(-1) -> PropagateCol(-1)}, then MaskBackground
 (cost(d) < 0.8*cost(0)), a right disparity map and MaskOcclusions.
 
-Each side's match runs on three hand-written kernels when the volume is on
-a CUDA device (``csrc/patchmatch.cu``): ``pm_refresh`` per iteration,
-``pm_propagate`` per directional pass and ``pm_mask_background`` once. On
-CPU tensors the plain twins here run instead; they define the kernels'
-results bit for bit.
+Each side's match is one launch of a hand-written kernel when the volume is
+on a CUDA device (``csrc/patchmatch.cu``): ``pm_match``, every pass of every
+iteration with the refresh and the mask folded in. On CPU tensors the plain
+twin :func:`_match_plain` runs instead, built from the plain twins of the
+stages (``_refresh_plain``, ``_propagate_plain``, ``mask_background_plain``);
+it defines the kernel's result bit for bit.
 
-The kernels read the volume in one of two layouts. The (H, W, D) volume of
+The kernel reads the volume in one of two layouts. The (H, W, D) volume of
 :func:`~.cost.cost_volume`, or, with ``use_strip_volumes``, the two strip
-layouts of :func:`~.cost.build_strip_volumes` (the ``*_strip`` kernels):
-row passes read ``V_row`` and column passes, refresh and mask read
-``V_col``. Both give the same disparities bit for bit.
+layouts of :func:`~.cost.build_strip_volumes` (``pm_match_strip``): row
+passes read ``V_row`` and column passes ``V_col``. Both give the same
+disparities bit for bit.
 """
 
 from __future__ import annotations
@@ -117,28 +118,14 @@ def _full_cost_map(C: torch.Tensor, disp: torch.Tensor, pr: int) -> torch.Tensor
 
 
 def _refresh_plain(C, disp, noise, scale: float, pr: int):
-    """Plain twin of ``pm_refresh``: add_foreground_noise, then _full_cost_map."""
+    """An iteration's refresh: add_foreground_noise, then _full_cost_map."""
     disp = add_foreground_noise(disp, noise, scale)
     return disp, _full_cost_map(C, disp, pr)
 
 
-def _refresh(C, disp, noise, scale: float, pr: int):
-    """Noise and cost-map refresh (kernel ``pm_refresh``)."""
-    if C.is_cuda:
-        return cuda.pm_refresh(C, disp, noise, scale, pr)
-    return _refresh_plain(C, disp, noise, scale, pr)
-
-
 def _refresh_strip_plain(V_col, disp, noise, scale: float, pr: int):
-    """Plain twin of ``pm_refresh_strip``."""
+    """The refresh over V_col."""
     return _refresh_plain(volume_from_col_strips(V_col), disp, noise, scale, pr)
-
-
-def _refresh_strip(V_col, disp, noise, scale: float, pr: int):
-    """The refresh over V_col (kernel ``pm_refresh_strip``)."""
-    if V_col.is_cuda:
-        return cuda.pm_refresh_strip(V_col, disp, noise, scale, pr)
-    return _refresh_strip_plain(V_col, disp, noise, scale, pr)
 
 
 def _chunk_columns(n: int, chunks: int, halo: int, pr: int, device=None):
@@ -164,7 +151,7 @@ def _strips(p: PatchMatchParams, axis: int) -> int:
 
 
 def _propagate_plain(C, disp, cost, direction: int, axis: int, p: PatchMatchParams):
-    """Plain twin of ``pm_propagate``: one directional pass over all strips.
+    """One directional pass over all strips (a pass of ``pm_match``).
 
     Scan position by position (all strips and lanes at once). Every step
     reads the pass-start disparity and cost of its position and only each
@@ -201,36 +188,21 @@ def _propagate_plain(C, disp, cost, direction: int, axis: int, p: PatchMatchPara
     return out_d, out_c
 
 
-def _propagate(C, disp, cost, direction: int, axis: int, p: PatchMatchParams):
-    """One directional pass (kernel ``pm_propagate``). Returns (disp, cost)."""
-    if C.is_cuda:
-        dim = C.shape[1] if axis == 1 else C.shape[0]
-        chunks = _effective_chunks(dim, _strips(p, axis))
-        return cuda.pm_propagate(C, disp, cost, direction, axis, chunks, p.halo, p.patch_radius)
-    return _propagate_plain(C, disp, cost, direction, axis, p)
-
-
 def _propagate_strip_plain(V, disp, cost, direction: int, axis: int, p: PatchMatchParams):
-    """Plain twin of ``pm_propagate_strip``: V is V_row for a row pass
+    """One directional pass over a strip layout: V is V_row for a row pass
     (axis 1) and V_col for a column pass (axis 0)."""
     C = volume_from_row_strips(V) if axis == 1 else volume_from_col_strips(V)
     return _propagate_plain(C, disp, cost, direction, axis, p)
 
 
-def _propagate_strip(V, disp, cost, direction: int, axis: int, p: PatchMatchParams):
-    """One directional pass over a strip layout (kernel ``pm_propagate_strip``)."""
-    if V.is_cuda:
-        return cuda.pm_propagate_strip(V, disp, cost, direction, axis, p.halo, p.patch_radius)
-    return _propagate_strip_plain(V, disp, cost, direction, axis, p)
-
-
-def mask_background_plain(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
-    """Plain twin of ``pm_mask_background``: zero the disparity unless it
-    improves cost by improve_factor vs d=0, and on the 1-px frame. The
-    threshold is a float32 product, as in the reference."""
+def _mask_with_cost(C: torch.Tensor, disp: torch.Tensor, cost_d: torch.Tensor,
+                    p: PatchMatchParams) -> torch.Tensor:
+    """MaskBackground given cost_d, the cost of each pixel's disparity:
+    zero the disparity unless it improves cost by improve_factor vs d=0, and
+    on the 1-px frame. The threshold is a float32 product, as in the
+    reference."""
     H, W = disp.shape
     pr = p.patch_radius
-    cost_d = _full_cost_map(C, disp, pr)
     keep = cost_d.float() < p.improve_factor * C[..., 0].float()
     yy = torch.arange(H, device=disp.device)[:, None]
     xx = torch.arange(W, device=disp.device)[None, :]
@@ -238,24 +210,15 @@ def mask_background_plain(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchPara
     return torch.where(keep & interior, disp, 0.0)
 
 
-def mask_background(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
-    """MaskBackground (kernel ``pm_mask_background``)."""
-    if C.is_cuda:
-        return cuda.pm_mask_background(C, disp, p.improve_factor, p.patch_radius)
-    return mask_background_plain(C, disp, p)
+def mask_background_plain(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
+    """MaskBackground, the cost of each disparity looked up in C."""
+    return _mask_with_cost(C, disp, _full_cost_map(C, disp, p.patch_radius), p)
 
 
 def mask_background_strip_plain(V_col: torch.Tensor, disp: torch.Tensor,
                                 p: PatchMatchParams) -> torch.Tensor:
-    """Plain twin of ``pm_mask_background_strip``."""
+    """MaskBackground over V_col."""
     return mask_background_plain(volume_from_col_strips(V_col), disp, p)
-
-
-def mask_background_strip(V_col: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
-    """MaskBackground over V_col (kernel ``pm_mask_background_strip``)."""
-    if V_col.is_cuda:
-        return cuda.pm_mask_background_strip(V_col, disp, p.improve_factor, p.patch_radius)
-    return mask_background_strip_plain(V_col, disp, p)
 
 
 def _improve_threshold(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
@@ -304,27 +267,46 @@ class PatchMatchResult(NamedTuple):
 PASSES = ((+1, 1), (+1, 0), (-1, 1), (-1, 0))  # R+ C+ R- C-: (direction, axis)
 
 
-def _match_one_side(C, seed, noise, p: PatchMatchParams) -> torch.Tensor:
-    """One side's match: per iteration noise + cost refresh and the R+ C+
-    R- C- passes, then MaskBackground."""
-    disp = seed.float().contiguous()
+def _match_passes(C_row, C_col, seed, noise, p: PatchMatchParams):
+    """The match before its mask: per iteration noise + cost refresh and the
+    R+ C+ R- C- passes. Returns (disp, cost), where cost is the one the
+    passes carry: the cost of each pixel's disparity (after the refresh and
+    after every pass, ``cost == _full_cost_map(C, disp, pr)``). Row passes
+    read C_row, the refresh and column passes C_col: the same volume, one
+    copy a layout."""
+    disp = seed.float()
+    cost = _full_cost_map(C_col, disp, p.patch_radius)
     for it in range(p.iters):
-        disp, cost = _refresh(C, disp, noise, p.noise_scale0 / 2.0**it, p.patch_radius)
+        disp, cost = _refresh_plain(C_col, disp, noise, p.noise_scale0 / 2.0**it, p.patch_radius)
         for direction, axis in PASSES:
-            disp, cost = _propagate(C, disp, cost, direction, axis, p)
-    return mask_background(C, disp, p)
+            disp, cost = _propagate_plain(C_row if axis == 1 else C_col, disp, cost, direction,
+                                          axis, p)
+    return disp, cost
+
+
+def _match_plain(C_row, C_col, seed, noise, p: PatchMatchParams) -> torch.Tensor:
+    """Plain twin of ``pm_match``: :func:`_match_passes`, then MaskBackground
+    on the cost the passes carry."""
+    return _mask_with_cost(C_col, *_match_passes(C_row, C_col, seed, noise, p), p)
+
+
+def _match_one_side(C, seed, noise, p: PatchMatchParams) -> torch.Tensor:
+    """One side's match (kernel ``pm_match``)."""
+    if C.is_cuda:
+        H, W = C.shape[:2]
+        return cuda.pm_match(C, seed.float().contiguous(), noise, p.iters, p.noise_scale0,
+                             _effective_chunks(W, p.chunks), _effective_chunks(H, _strips(p, 0)),
+                             p.halo, p.patch_radius, p.improve_factor)
+    return _match_plain(C, C, seed, noise, p)
 
 
 def _match_one_side_strips(V_row, V_col, seed, noise, p: PatchMatchParams) -> torch.Tensor:
-    """:func:`_match_one_side` over the strip layouts: row passes read
-    V_row; refresh, column passes and the mask read V_col."""
-    disp = seed.float().contiguous()
-    for it in range(p.iters):
-        disp, cost = _refresh_strip(V_col, disp, noise, p.noise_scale0 / 2.0**it, p.patch_radius)
-        for direction, axis in PASSES:
-            V = V_row if axis == 1 else V_col
-            disp, cost = _propagate_strip(V, disp, cost, direction, axis, p)
-    return mask_background_strip(V_col, disp, p)
+    """:func:`_match_one_side` over the strip layouts (kernel
+    ``pm_match_strip``): row passes read V_row, column passes V_col."""
+    if V_row.is_cuda:
+        return cuda.pm_match_strip(V_row, V_col, seed.float().contiguous(), noise, p.iters,
+                                   p.noise_scale0, p.halo, p.patch_radius, p.improve_factor)
+    return _match_plain(volume_from_row_strips(V_row), volume_from_col_strips(V_col), seed, noise, p)
 
 
 def _refine(C: torch.Tensor, disp: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:

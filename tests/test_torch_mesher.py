@@ -208,8 +208,21 @@ def test_object_mesher_meshes_a_box():
                     lk=TLK(max_level=2), trigger_keyframe_k=2,
                     matcher=TSM(max_disp=24, templ_cols=11, templ_rows=11, max_matching_cost=0.4)),
         min_obs_connect_edge=3.0, min_obs_disconnect_edge=2.0, neighbor_radius_px=60.0))
-    mesher = tom.ObjectMesher(params, StereoCamera.create(cam, cam, 0.3))
+    mesher = tom.ObjectMesher(params, StereoCamera.create(cam, cam, 0.3), device="cpu")
     for _ in range(6):
         mesh = mesher.process_stereo(left, right)
     assert mesh.num_triangles > 0
     assert abs(np.median(mesh.vertices[:, 2]) - 5.0) < 0.6
+
+
+def test_object_mesher_needs_a_card_by_default(monkeypatch):
+    """ObjectMesher runs on the card unless the caller asks for the CPU:
+    without a card it raises, as the other entry points do."""
+    from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = PinholeCamera.create(200.0, 200.0, W / 2, H / 2, H, W)
+    rig = StereoCamera.create(cam, cam, 0.3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tom.ObjectMesher(tom.ObjectMesherParams(), rig)
+    assert tom.ObjectMesher(tom.ObjectMesherParams(), rig, device="cpu").device.type == "cpu"

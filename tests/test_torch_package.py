@@ -71,20 +71,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda.cost_volume(x, x, x, x, 4, 0.9, 0.1, torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda.pm_refresh(C, x, x, 32.0, 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda.pm_propagate(C, x, x.bfloat16(), 1, 1, 4, 5, 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda.pm_mask_background(C, x, 0.8, 1)
+        cuda.pm_match(C, x, x, 3, 32.0, 4, 2, 5, 1, 0.8)
     with pytest.raises(ValueError, match="CUDA"):
         cuda.build_volumes(x, x, x, x, 4, 0.9, 0.1, 4, 2, torch.bfloat16)
+    V_row = torch.zeros(4, 4, 4, 8, dtype=torch.bfloat16)
     V_col = torch.zeros(4, 2, 4, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda.pm_refresh_strip(V_col, x, x, 32.0, 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda.pm_propagate_strip(V_col, x, x.bfloat16(), 1, 0, 5, 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda.pm_mask_background_strip(V_col, x, 0.8, 1)
+        cuda.pm_match_strip(V_row, V_col, x, x, 3, 32.0, 5, 1, 0.8)
     ring, pts, src = torch.zeros(2, 8, 16), torch.zeros(4, 2), torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         cuda.lk_track([ring], [ring], pts, pts, src, src, [7], 4, 5, 1e-9, 30, 1e-4)
@@ -192,49 +185,49 @@ def test_cost_volume_kernel_matches_plain(cuda_device, dtype):
     assert torch.equal(ours, plain)
 
 
+def _match_plain_loop(C_row, C_col, seed, noise, p):
+    """The match as the stages' plain twins compose it, the mask on a fresh
+    lookup: refresh, R+ C+ R- C- per iteration, then mask_background_plain."""
+    disp = seed
+    for it in range(p.iters):
+        disp, cost = tpm._refresh_plain(C_col, disp, noise, p.noise_scale0 / 2.0**it, 1)
+        for direction, axis in tpm.PASSES:
+            disp, cost = tpm._propagate_plain(C_row if axis == 1 else C_col, disp, cost,
+                                              direction, axis, p)
+    return tpm.mask_background_plain(C_col, disp, p)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [True, False])
 def test_patchmatch_kernels_match_plain(cuda_device, bf16):
+    """pm_match, the whole match in one launch, against the plain loop."""
     l, r, D = _stereo_inputs(cuda_device)
     p = tpm.PatchMatchParams(max_disp=D, chunks=4, chunks_y=3, iters=2, right_wta=True, volume_bf16=bf16)
     C = tcost.cost_volume(l, r, D, 0.9, dtype=torch.bfloat16 if bf16 else torch.float32)
     seed = tpm.sparse_wta_seed(C, p)
     noise = tpm.unit_noise(seed.shape, p.noise_seed, device=cuda_device)
 
-    disp, cost = cuda.pm_refresh(C, seed, noise, 8.0, 1)
-    ref_disp = tpm.add_foreground_noise(seed, noise, 8.0)
-    assert torch.equal(disp, ref_disp) and torch.equal(cost, tpm._full_cost_map(C, ref_disp, 1))
-    for direction, axis in ((1, 1), (1, 0), (-1, 1), (-1, 0)):
-        k_d, k_c = tpm._propagate(C, disp, cost, direction, axis, p)
-        p_d, p_c = tpm._propagate_plain(C, disp, cost, direction, axis, p)
-        assert torch.equal(k_d, p_d) and torch.equal(k_c, p_c), (direction, axis)
-    assert torch.equal(tpm.mask_background(C, disp, p), tpm.mask_background_plain(C, disp, p))
-
     cuda.reset_launches()
     full = tpm._match_one_side(C, seed, noise, p)
-    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {
-        "pm_refresh": 2, "pm_propagate": 8, "pm_mask_background": 1}
-    plain = seed
-    for it in range(p.iters):
-        plain = tpm.add_foreground_noise(plain, noise, p.noise_scale0 / 2.0**it)
-        c = tpm._full_cost_map(C, plain, 1)
-        for direction, axis in ((1, 1), (1, 0), (-1, 1), (-1, 0)):
-            plain, c = tpm._propagate_plain(C, plain, c, direction, axis, p)
-    assert torch.equal(full, tpm.mask_background_plain(C, plain, p))
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {"pm_match": 1}
+    assert torch.equal(full, tpm._match_plain(C, C, seed, noise, p))
+    assert torch.equal(full, _match_plain_loop(C, C, seed, noise, p))
+    assert 0 < (full > 0).float().mean() < 1
     torch.cuda.synchronize()
 
 
-def _adversarial_fronts(C, seed=5):
-    """Fronts on which a pass's compare flips often: disparities uniform in
-    [0, D), half of them on the half-integer grid (rounding ties), and costs
-    drawn from the volume's own entries at random, in its dtype."""
+def _adversarial_seed(C, seed=5):
+    """A seed and a noise image on which the match's lookups tie and clamp:
+    disparities on the half-integer grid over [0, D + 4), a quarter of them 0
+    (background), so past x - pr at the left edge and past D - 1; noise on
+    the 1/64 grid, so the refreshed disparities stay on the half-integer
+    grid."""
     rng = np.random.default_rng(seed)
     H, W, D = C.shape
-    disp = rng.uniform(0, D, (H, W)).astype(np.float32)
-    half = rng.random((H, W)) < 0.5
-    disp[half] = np.floor(disp[half] * 2) / 2
-    pick = torch.from_numpy(rng.integers(0, C.numel(), H * W)).to(C.device)
-    return torch.from_numpy(disp).to(C.device), C.reshape(-1)[pick].reshape(H, W).contiguous()
+    disp = np.floor(rng.uniform(0, D + 4, (H, W)) * 2).astype(np.float32) / 2
+    disp[rng.random((H, W)) < 0.25] = 0
+    noise = (rng.integers(-64, 64, (H, W)) / 64).astype(np.float32)
+    return torch.from_numpy(disp).to(C.device), torch.from_numpy(noise).to(C.device)
 
 
 @pytest.mark.gpu
@@ -243,27 +236,26 @@ def _adversarial_fronts(C, seed=5):
     (40, 72, 24, 4, 2),   # 40 rows: a partial row block; w = 28 and 30
     (45, 70, 32, 1, 1),   # one strip: a row pass of w = 80, over two staged segments
     (33, 100, 20, 5, 3),  # 33 rows, one past two blocks; w = 30 and 21
+    (24, 300, 16, 3, 2),  # 300 columns: a partial column tile of 44
 ])
 def test_propagate_kernels_on_adversarial_fronts(cuda_device, dtype, H, W, D, chunks, chunks_y):
-    """pm_propagate and pm_propagate_strip against their twins where the
-    compare flips often, in geometries whose row counts and scan lengths are
-    no multiple of the row kernel's block (16 rows), speculation depth (4) or
-    staged segment (64 positions), and whose first strips lie at x < D,
-    where the x - pr clamp bites."""
+    """pm_match and pm_match_strip against the plain loop where the compare
+    flips often, lookups tie and the x - pr clamp and the mask fire, in
+    geometries whose row counts and scan lengths are no multiple of the row
+    passes' work item (16 rows), speculation depth (4) or staged segment
+    (64 positions), and whose first strips lie at x < D."""
     l, r, _ = _stereo_inputs(cuda_device, H, W, D)
     gl, gr = gradient_magnitude(l), gradient_magnitude(r)
-    p = tpm.PatchMatchParams(max_disp=D, chunks=chunks, chunks_y=chunks_y)
+    p = tpm.PatchMatchParams(max_disp=D, chunks=chunks, chunks_y=chunks_y, iters=3)
     C = tcost.cost_volume(l, r, D, 0.9, gl, gr, dtype=dtype)
     vr, vc = tcost.build_strip_volumes(l, r, gl, gr, D, 0.9, chunks, chunks_y, dtype)
-    disp, cost = _adversarial_fronts(C)
+    seed, noise = _adversarial_seed(C)
+    want = _match_plain_loop(C, C, seed, noise, p)
+    assert 0 < (want > 0).float().mean() < (seed > 0).float().mean()
     cuda.reset_launches()
-    for direction, axis in tpm.PASSES:
-        want = tpm._propagate_plain(C, disp, cost, direction, axis, p)
-        assert (want[0] != disp).any()
-        for got in (tpm._propagate(C, disp, cost, direction, axis, p),
-                    tpm._propagate_strip(vr if axis == 1 else vc, disp, cost, direction, axis, p)):
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (direction, axis)
-    assert cuda.LAUNCHES["pm_propagate"] == cuda.LAUNCHES["pm_propagate_strip"] == 4
+    assert torch.equal(tpm._match_one_side(C, seed, noise, p), want)
+    assert torch.equal(tpm._match_one_side_strips(vr, vc, seed, noise, p), want)
+    assert cuda.LAUNCHES["pm_match"] == cuda.LAUNCHES["pm_match_strip"] == 1
     torch.cuda.synchronize()
 
 
@@ -294,20 +286,10 @@ def test_strip_patchmatch_kernels_match_plain(cuda_device, bf16):
     seed = tpm.sparse_wta_seed(C, p)
     noise = tpm.unit_noise(seed.shape, p.noise_seed, device=cuda_device)
 
-    disp, cost = tpm._refresh_strip(vc, seed, noise, 8.0, 1)
-    ref_d, ref_c = tpm._refresh_plain(C, seed, noise, 8.0, 1)
-    assert torch.equal(disp, ref_d) and torch.equal(cost, ref_c)
-    for direction, axis in tpm.PASSES:
-        V = vr if axis == 1 else vc
-        k_d, k_c = tpm._propagate_strip(V, disp, cost, direction, axis, p)
-        p_d, p_c = tpm._propagate_strip_plain(V, disp, cost, direction, axis, p)
-        assert torch.equal(k_d, p_d) and torch.equal(k_c, p_c), (direction, axis)
-    assert torch.equal(tpm.mask_background_strip(vc, disp, p), tpm.mask_background_plain(C, disp, p))
-
     cuda.reset_launches()
     full = tpm._match_one_side_strips(vr, vc, seed, noise, p)
-    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {
-        "pm_refresh_strip": 2, "pm_propagate_strip": 8, "pm_mask_background_strip": 1}
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {"pm_match_strip": 1}
+    assert torch.equal(full, _match_plain_loop(tcost.volume_from_row_strips(vr), C, seed, noise, p))
     assert torch.equal(full, tpm._match_one_side(C, seed, noise, p))
     gpu = tpm.patchmatch_disparity(l, r, p)
     cpu = tpm.patchmatch_disparity(l.cpu(), r.cpu(), p)

@@ -112,7 +112,7 @@ def test_propagate_pass_bit_exact(volume, direction, axis, fronts):
     layout = (jpm._layout_rows if axis == 1 else jpm._layout_cols)(v["C"], v["jp"])
     ref_d, ref_c = jax.jit(
         lambda d, c: jpm._propagate(layout, d, c, direction, axis, v["jp"]))(disp, cost)
-    ours_d, ours_c = tpm._propagate(_t(v["C"]), _t(disp), _t(cost), direction, axis, v["tp"])
+    ours_d, ours_c = tpm._propagate_plain(_t(v["C"]), _t(disp), _t(cost), direction, axis, v["tp"])
     np.testing.assert_array_equal(ours_d.numpy(), np.asarray(ref_d))
     np.testing.assert_array_equal(_np(ours_c), np.asarray(ref_c, np.float32))
     assert (np.asarray(ref_d) != np.asarray(disp)).any()  # the pass did something
@@ -120,7 +120,7 @@ def test_propagate_pass_bit_exact(volume, direction, axis, fronts):
 
 def test_refresh_matches_noise_then_cost_map(volume):
     v = volume
-    ours_d, ours_c = tpm._refresh(_t(v["C"]), _t(v["seed"]), _t(v["noise"]), 8.0, 1)
+    ours_d, ours_c = tpm._refresh_plain(_t(v["C"]), _t(v["seed"]), _t(v["noise"]), 8.0, 1)
     np.testing.assert_array_equal(ours_d.numpy(), np.asarray(v["disp"]))
     np.testing.assert_array_equal(_np(ours_c), np.asarray(v["cost"], np.float32))
 
@@ -133,6 +133,74 @@ def test_match_one_side_bit_exact(volume):
     assert (np.asarray(ref) > 0).mean() > 0.2
 
 
+def _adversarial_seed(C, seed=6):
+    """A seed and a noise image on which the match's lookups tie and clamp:
+    disparities on the half-integer grid over [0, D + 4), a quarter of them 0
+    (background), so past x - pr at the left edge and past D - 1; noise on
+    the 1/64 grid, so that noise * 32, 16 and 8 keep the refreshed
+    disparities on the half-integer grid."""
+    rng = np.random.default_rng(seed)
+    h, w, d_max = np.asarray(C).shape
+    disp = np.floor(rng.uniform(0, d_max + 4, (h, w)) * 2).astype(np.float32) / 2
+    disp[rng.random((h, w)) < 0.25] = 0
+    noise = (rng.integers(-64, 64, (h, w)) / 64).astype(np.float32)
+    return disp, noise
+
+
+def _tie_volume(bf16: bool, seed=7):
+    """A volume whose costs tie often: 4 values, so most compares meet equal
+    costs, and the mask's threshold 0.8 * cost(0) falls on both sides."""
+    rng = np.random.default_rng(seed)
+    C = (rng.integers(1, 5, (H, W, D)) / 4).astype(np.float32)
+    return jnp.asarray(C, jnp.bfloat16 if bf16 else jnp.float32)
+
+
+def _carried_costs(C, seed, noise, p):
+    """The plain match's (disp, cost) after each refresh and each pass."""
+    out, disp = [], seed
+    for it in range(p.iters):
+        disp, cost = tpm._refresh_plain(C, disp, noise, p.noise_scale0 / 2.0**it, p.patch_radius)
+        out.append((disp, cost))
+        for direction, axis in tpm.PASSES:
+            disp, cost = tpm._propagate_plain(C, disp, cost, direction, axis, p)
+            out.append((disp, cost))
+    return out
+
+
+@pytest.mark.parametrize("inputs", ["fixture", "adversarial seed", "tie volume"])
+def test_carried_cost_is_the_cost_of_the_disparity(volume, inputs):
+    """The invariant the match kernel's folded mask rests on: after the
+    refresh and after every pass, cost == _full_cost_map(C, disp, pr) on
+    every pixel; and MaskBackground from the carried cost equals
+    mask_background_plain."""
+    v = volume
+    C = v["C"] if inputs != "tie volume" else _tie_volume(v["dtype"] == torch.bfloat16)
+    seed, noise = (v["seed"], v["noise"]) if inputs == "fixture" else _adversarial_seed(C)
+    C, seed, noise = _t(C), _t(seed), _t(noise)
+    states = _carried_costs(C, seed, noise, v["tp"])
+    assert len(states) == 5 * v["tp"].iters
+    for i, (disp, cost) in enumerate(states):
+        assert torch.equal(cost, tpm._full_cost_map(C, disp, 1)), i
+    disp, cost = states[-1]
+    masked = tpm._mask_with_cost(C, disp, cost, v["tp"])
+    assert torch.equal(masked, tpm.mask_background_plain(C, disp, v["tp"]))
+    assert 0 < (masked > 0).sum() < (disp > 0).sum()  # the mask fired, and kept some
+
+
+@pytest.mark.parametrize("inputs", ["adversarial seed", "tie volume"])
+def test_match_plain_bit_exact_on_adversarial_inputs(volume, inputs):
+    """The plain match, in the kernel's order (the refresh folded into the
+    passes' fronts, the mask on the carried cost), against JAX's
+    _match_one_side under jit where lookups tie and clamp."""
+    v = volume
+    C = v["C"] if inputs == "adversarial seed" else _tie_volume(v["dtype"] == torch.bfloat16)
+    seed, noise = _adversarial_seed(C)
+    ref = jax.jit(lambda c, s, n: jpm._match_one_side(c, s, n, v["jp"]))(C, seed, noise)
+    ours = tpm._match_plain(_t(C), _t(C), _t(seed), _t(noise), v["tp"])
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert 0 < (np.asarray(ref) > 0).mean() < 1
+
+
 def test_seed_right_wta_and_masks_bit_exact(volume):
     v = volume
     jp, tp, C = v["jp"], v["tp"], _t(v["C"])
@@ -141,7 +209,8 @@ def test_seed_right_wta_and_masks_bit_exact(volume):
     ours_r = tpm.right_wta_from_left(C, tp)
     np.testing.assert_array_equal(ours_r.numpy(), np.asarray(ref_r))
     ref_m = jax.jit(lambda c, d: jpm.mask_background(c, d, jp))(v["C"], v["disp"])
-    np.testing.assert_array_equal(tpm.mask_background(C, _t(v["disp"]), tp).numpy(), np.asarray(ref_m))
+    np.testing.assert_array_equal(tpm.mask_background_plain(C, _t(v["disp"]), tp).numpy(),
+                                  np.asarray(ref_m))
     ref_o = jax.jit(lambda a, b: jpm.mask_occlusions(a, b, jp))(v["disp"], ref_r)
     ours_o = tpm.mask_occlusions(_t(v["disp"]), ours_r, tp)
     np.testing.assert_array_equal(ours_o.numpy(), np.asarray(ref_o))

@@ -102,15 +102,16 @@ def test_strip_twins_equal_volume_twins(strips):
     """Each strip-layout twin gives what its (H, W, D) namesake gives."""
     s = strips
     p, C, vr, vc = s["p"], s["C"], s["vr"], s["vc"]
-    disp, cost = tpm._refresh_strip(vc, s["seed"], s["noise"], 8.0, 1)
-    ref_d, ref_c = tpm._refresh(C, s["seed"], s["noise"], 8.0, 1)
+    disp, cost = tpm._refresh_strip_plain(vc, s["seed"], s["noise"], 8.0, 1)
+    ref_d, ref_c = tpm._refresh_plain(C, s["seed"], s["noise"], 8.0, 1)
     assert torch.equal(disp, ref_d) and torch.equal(cost, ref_c)
     for direction, axis in tpm.PASSES:
         V = vr if axis == 1 else vc
-        got = tpm._propagate_strip(V, disp, cost, direction, axis, p)
-        want = tpm._propagate(C, disp, cost, direction, axis, p)
+        got = tpm._propagate_strip_plain(V, disp, cost, direction, axis, p)
+        want = tpm._propagate_plain(C, disp, cost, direction, axis, p)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (direction, axis)
-    assert torch.equal(tpm.mask_background_strip(vc, disp, p), tpm.mask_background(C, disp, p))
+    assert torch.equal(tpm.mask_background_strip_plain(vc, disp, p),
+                       tpm.mask_background_plain(C, disp, p))
     full = tpm._match_one_side_strips(vr, vc, s["seed"], s["noise"], p)
     assert torch.equal(full, tpm._match_one_side(C, s["seed"], s["noise"], p))
     assert (full > 0).float().mean() > 0.2
