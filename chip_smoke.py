@@ -51,7 +51,30 @@ disparity and motion, in phases:
    outputs fed back as the next frame's state (ms/frame beside the call
    path's; the first and last frames' labels, slot ids and pixels equal to
    the call path's) and LK's share of its device time;
-11. the same frontend frame through the port on the CPU, against the card.
+11. the same frontend frame through the port on the CPU, against the card;
+12. ``perception_step`` on a batch of N_CAMERAS cameras in one call, each
+   its own frame of the sequence (``make_inputs(canvas, i)``), on the (H, W,
+   D) volume, on the strip layouts and at the farm point
+   (``internal_scale=4``): the batched kernels against their batched twins
+   at the batch's shapes (bit-identical) with their times and bounds beside
+   their one-camera times, and the farm point's (``cost_volume`` and
+   ``pm_match`` at its quarter-resolution shapes, checked as in phase 3 and
+   not timed); then each configuration's batched step, whose
+   every camera's disparity and depth must equal the one-camera step's on
+   that frame bit for bit and whose enhanced image must stay within the
+   enhance tolerance (below), with each kernel launched once a call, no
+   host sync, and its CUDA graph's replay equal to the call path; ms per
+   call by calls and by graph beside the one-camera graph frame, fps per
+   GPU, the CUDA kernels a call runs at one camera and at N_CAMERAS
+   (``torch.profiler``, with the kernels whose count differs between the
+   two, and the kernel nodes of the call captured in a CUDA graph), and the
+   peak device memory of each.
+
+The enhanced image of a batched camera is held to the one-camera step's as
+the port's CPU tests hold it to the reference: the median and the 99.9th
+percentile of |batched - single| at most twice those of the change the
+one-camera enhancement shows when its input moves by one ulp (its LM fits
+are ill-conditioned; a batched solve may round differently).
 
 A kernel's times, at each call shape of its path: its device time two ways,
 ``torch.profiler`` over 20 calls (``profiler_ms``; "not measured" where the
@@ -121,6 +144,8 @@ FRONTEND_SYNCS = 0
 PER_FRAME = {"cost_volume": 1, "pm_match": 1}
 PER_STRIP_FRAME = {"build_volumes": 1, "pm_match_strip": 1}
 PER_FRONTEND_FRAME = dict(PER_FRAME, lk_track=2)  # forward and backward, 4 levels each
+N_CAMERAS = 4  # phase 12's batch
+FARM_SCALE = 4  # the farm point's internal_scale
 SHIFT = 2  # frontend sequence: features move -SHIFT px a frame
 PM_CU = "ocean_perception_tpu_torch/csrc/patchmatch.cu"
 SOURCES = {
@@ -139,6 +164,9 @@ SOURCES = {
 # the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# Resident blocks an SM of pm_match's cooperative grid (csrc/patchmatch.cu,
+# kMinBlocks).
+MATCH_BLOCKS_PER_SM = 3
 # A float32 add's latency on Hopper, in cycles, and the H100 SXM's boost
 # clock: the time floor of a chain of dependent operations.
 OP_CYCLES, CLOCK_HZ = 4, 1.98e9
@@ -321,15 +349,16 @@ def times_line(t: dict) -> str:
 
 
 def adversarial_seed(shape, D: int, device, seed: int = 5):
-    """A seed and a noise image on which the match's lookups tie and clamp
-    and its mask fires: disparities on the half-integer grid over [0, D + 4),
-    a quarter of them 0 (background), so past x - pr at the left edge and
-    past D - 1; noise on the 1/64 grid, so that noise * 32, 16 and 8 keep
-    the refreshed disparities on the half-integer grid."""
+    """Seeds of shape (..., H, W) and one (H, W) noise image on which the
+    match's lookups tie and clamp and its mask fires: disparities on the
+    half-integer grid over [0, D + 4), a quarter of them 0 (background), so
+    past x - pr at the left edge and past D - 1; noise on the 1/64 grid, so
+    that noise * 32, 16 and 8 keep the refreshed disparities on the
+    half-integer grid."""
     rng = np.random.default_rng(seed)
     d = np.floor(rng.uniform(0, D + 4, shape) * 2).astype(np.float32) / 2
     d[rng.random(shape) < 0.25] = 0
-    noise = (rng.integers(-64, 64, shape) / 64).astype(np.float32)
+    noise = (rng.integers(-64, 64, shape[-2:]) / 64).astype(np.float32)
     return torch.from_numpy(d).to(device), torch.from_numpy(noise).to(device)
 
 
@@ -361,11 +390,12 @@ def bound(nbytes: float, flops: float = 0.0) -> dict:
 
 class VolumeReads(torch.overrides.TorchFunctionMode):
     """Records which elements of the volumes a plain match reads: the
-    storage offsets of every advanced index (``vol[a, b, d]``) into a view
-    of one of vols and of every ``torch.gather`` from one, each volume's
-    offsets apart. A pass's reads where its loop bounds fail (the 1-px
-    frame, the last row or column of a scan) decide nothing and are left
-    out; so are basic indices (the mask's cost(0), added by the caller)."""
+    storage offsets of every advanced index (``vol[cam, a, b, d]``) into a
+    view of one of vols and of every ``torch.gather`` from one, each
+    volume's offsets apart. A pass's reads where its loop bounds fail (the
+    1-px frame, the last row or column of a scan) decide nothing and are
+    left out; so are basic indices (the mask's cost(0), added by the
+    caller)."""
 
     def __init__(self, vols, pr: int):
         super().__init__()
@@ -379,10 +409,11 @@ class VolumeReads(torch.overrides.TorchFunctionMode):
         k = self.vols.get(src.data_ptr()) if isinstance(src, torch.Tensor) else None
         if k is not None and func is torch.Tensor.__getitem__ and isinstance(args[1], tuple) \
                 and all(isinstance(i, torch.Tensor) for i in args[1]):
-            a, b, d = torch.broadcast_tensors(*args[1])
-            n, lanes, pr = src.shape[0], src.shape[1], self.pr
+            index = torch.broadcast_tensors(*args[1])
+            a, b = index[-3], index[-2]
+            n, lanes, pr = src.shape[-3], src.shape[-2], self.pr
             used = (a >= pr) & (a <= n - pr - 2) & (b >= pr) & (b <= lanes - pr - 1)
-            off = a * src.stride(0) + b * src.stride(1) + d * src.stride(2)
+            off = sum(i * st for i, st in zip(index, src.stride()))
             self.offsets[k].append(off[used])
         elif k is not None and func is torch.gather:
             assert args[1] in (-1, src.dim() - 1), "a gather along the disparity axis"
@@ -397,41 +428,51 @@ class VolumeReads(torch.overrides.TorchFunctionMode):
 def match_bound(C_row: torch.Tensor, C_col: torch.Tensor, seed, noise, p, spec: int,
                 l2: dict) -> dict:
     """Bound of one match launch whose row passes read C_row and whose other
-    reads go to C_col ((H, W, D) each, the same tensor for pm_match), on
-    this seed and noise; and its chain.
-    Bytes: what must cross the card's memory in one launch. The seed and
-    the noise are read once and the output written once; of the volumes,
+    reads go to C_col ((..., H, W, D) each, the same tensor for pm_match),
+    on these seeds and noise; and its chain.
+    Bytes: what must cross the card's memory in one launch. The seeds and
+    the noise are read once and the outputs written once; of the volumes,
     each element the plain twin's reads need (``VolumeReads`` over
     ``_match_passes``, and cost(0) of every pixel for the mask), once a
     layout, however many passes read it. The fronts, 1.4 MB a pair at 720p,
     stay in the 50 MB L2 between passes and are not counted. The chain of dependent L2 round trips: a row pass
     stages its fronts (one trip, two with the refresh's lookups), then
     walks its chunk + 2*halo positions, spec of them a trip; a column pass
-    reads its predecessor, then walks one position a trip; each grid
-    barrier between passes is two (arrive, then see the release). A trip
-    takes l2["ns"], the pointer chase's latency in this run."""
-    H, W, D = C_col.shape
+    reads its predecessor, then walks one position a trip; a block that
+    takes more than one of a pass's work items (B cameras' items over at
+    most MATCH_BLOCKS_PER_SM blocks an SM) walks them one after another;
+    each grid barrier between passes is two (arrive, then see the release).
+    A trip takes l2["ns"], the pointer chase's latency in this run."""
+    *batch, H, W, D = C_col.shape
+    B = int(np.prod(batch))
     vols = [C_row] if C_row.data_ptr() == C_col.data_ptr() else [C_row, C_col]
     reads = VolumeReads(vols, p.patch_radius)
     with reads:
         pm._match_passes(C_row, C_col, seed, noise, p)
-    # The first read is the seed's cost, which the first refresh replaces
+    # The first read is the seeds' cost, which the first refresh replaces
     # before anything reads it.
-    if reads.offsets[-1][0].numel() != H * W:
+    if reads.offsets[-1][0].numel() != B * H * W:
         raise AssertionError("the plain match no longer starts with the seed's cost")
     reads.offsets[-1].pop(0)
-    yy, xx = torch.meshgrid(torch.arange(H, device=C_col.device),
-                            torch.arange(W, device=C_col.device), indexing="ij")
-    reads.offsets[-1].append((yy * C_col.stride(0) + xx * C_col.stride(1)).flatten())
+    cam, yy, xx = torch.meshgrid(*(torch.arange(n, device=C_col.device) for n in (B, H, W)),
+                                 indexing="ij")
+    C_flat = C_col.reshape(B, H, W, D)
+    reads.offsets[-1].append((cam * C_flat.stride(0) + yy * C_flat.stride(1)
+                              + xx * C_flat.stride(2)).flatten())
     elements = sum(int(torch.unique(torch.cat(o)).numel()) for o in reads.offsets)
-    nbytes = H * W * (4 + 4 + 4) + elements * C_col.element_size()
+    nbytes = B * H * W * (4 + 4) + H * W * 4 + elements * C_col.element_size()
     passes = 4 * p.iters
     trips = 2 * (passes - 1)
+    items = {1: -(-H // 16) * sc._effective_chunks(W, p.chunks),  # kLanes rows an item
+             0: -(-W // 128) * sc._effective_chunks(H, pm._strips(p, 0))}  # kColumns
+    blocks = min(MATCH_BLOCKS_PER_SM * torch.cuda.get_device_properties(C_col.device)
+                 .multi_processor_count, B * max(items.values()))
     for k in range(passes):
         axis = 1 if k % 2 == 0 else 0
         dim = W if axis == 1 else H
         w = dim // sc._effective_chunks(dim, pm._strips(p, axis)) + 2 * p.halo
-        trips += (1 + (k % 4 == 0) + -(-w // spec)) if axis == 1 else 1 + w
+        waves = -(-B * items[axis] // blocks)
+        trips += waves * ((1 + (k % 4 == 0) + -(-w // spec)) if axis == 1 else 1 + w)
     return dict(**bound(nbytes), volume_elements=elements, chain_trips=trips,
                 chain_ms=trips * l2["ns"] / 1e6)
 
@@ -491,70 +532,84 @@ def phase_build() -> None:
     print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dict) -> dict:
+def phase_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dict | None,
+                  tag: str = "", scale: int = SCALE) -> dict:
     """cost_volume and pm_match against their plain twins on identical
-    inputs at 720p shapes, then their device time (profiler and graph
-    replay), their call time and their twins'."""
+    inputs at the shapes of the path at internal scale ``scale``, then their
+    device time (profiler and graph replay), their call time and their
+    twins'. The images may be a batch of cameras, (B, H, W, 3): tag names
+    it in the printed lines. With l2 None the twins are checked and nothing
+    is timed (no rows are returned)."""
     dev = left_rgb.device
-    iml = pyr_down(to_grayscale(left_rgb))
-    imr = pyr_down(to_grayscale(right_rgb))
+    iml, imr = to_grayscale(left_rgb), to_grayscale(right_rgb)
+    for _ in range(scale.bit_length() - 1):
+        iml, imr = pyr_down(iml), pyr_down(imr)
     gl, gr = gradient_magnitude(iml), gradient_magnitude(imr)
-    D = MAX_DISP // SCALE
+    D = MAX_DISP // scale
     p = pm.PatchMatchParams(max_disp=D, right_wta=True, volume_bf16=True)
     a, b = float(np.float32(p.alpha)), float(np.float32(1.0 - p.alpha))
     rows = {}
 
     C = cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16)
     C_plain = cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16)
-    require_equal("cost_volume", C, C_plain)
+    require_equal(f"cost_volume{tag}", C, C_plain)
     C32 = cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.float32)
-    require_equal("cost_volume float32", C32,
+    require_equal(f"cost_volume{tag} float32", C32,
                   cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.float32))
-    Hs, Ws = iml.shape
+    seed = pm.sparse_wta_seed(C, p)
+    noise = pm.unit_noise(iml.shape[-2:], p.noise_seed, device=dev)
+    vols = {torch.float32: C32, torch.bfloat16: C}
+
+    def match(vol, s, n):
+        return pm._match_one_side(vol, s, n, p)
+
+    if l2 is None:
+        print(f"[cost_volume{tag}] images {tuple(iml.shape)}, volume {tuple(C.shape)}: "
+              f"bit-identical to the plain twin in bf16 and float32")
+        check_match("pm_match", vols, seed, noise, p, match, lambda vol: (vol, vol), None, tag)
+        return {}
     rows["cost_volume"] = dict(
         max_abs_err=max_abs(C, C_plain),
         **summarize([measure(
             "cost_volume", lambda: cuda.cost_volume(iml, imr, gl, gr, D, a, b, torch.bfloat16),
             lambda: cost_volume_plain(iml, imr, D, p.alpha, gl, gr, torch.bfloat16))]),
-        **bound(4 * Hs * Ws * 4 + C.numel() * C.element_size()),
+        **bound(4 * iml.numel() * 4 + C.numel() * C.element_size()),
     )
-    seed = pm.sparse_wta_seed(C, p)
-    noise = pm.unit_noise(iml.shape, p.noise_seed, device=dev)
-    rows["pm_match"] = check_match(
-        "pm_match", {torch.float32: C32, torch.bfloat16: C}, seed, noise, p,
-        lambda vol, s, n: pm._match_one_side(vol, s, n, p),
-        lambda vol: (vol, vol), match_bound(C, C, seed, noise, p, 4, l2))
+    rows["pm_match"] = check_match("pm_match", vols, seed, noise, p, match, lambda vol: (vol, vol),
+                                   match_bound(C, C, seed, noise, p, 4, l2), tag)
     return rows
 
 
-def check_match(name, vols, seed, noise, p, kernel, plain_volumes, bounds) -> dict:
+def check_match(name, vols, seed, noise, p, kernel, plain_volumes, bounds, tag="") -> dict:
     """A match kernel, kernel(vol, seed, noise), against the plain twin
     _match_plain(*plain_volumes(vol), ...) on each volume of vols ({dtype:
     volume or layouts}), on the path's seed and noise and on an adversarial
     seed: bit-identical, the mask zeroing some pixels and keeping others.
-    Then its times on
-    the last (bf16, the production dtype) with the path's seed."""
+    Then, unless bounds is None, its times on the last (bf16, the
+    production dtype) with the path's seed."""
     err, pr = 0.0, p.patch_radius
     adversarial = adversarial_seed(tuple(seed.shape), p.max_disp, seed.device)
     for dtype, vol in vols.items():
-        for tag, (s, n) in (("the path's", (seed, noise)), ("an adversarial", adversarial)):
+        for seeds, (s, n) in (("the path's", (seed, noise)), ("an adversarial", adversarial)):
             got = kernel(vol, s, n)
             want = pm._match_plain(*plain_volumes(vol), s, n, p)
-            require_equal(f"{name} {dtype} {tag}", got, want)
+            require_equal(f"{name}{tag} {dtype} {seeds}", got, want)
             err = max(err, max_abs(got, want))
             # Interior pixels the mask zeroed, of those the passes left nonzero.
-            pre = pm._match_passes(*plain_volumes(vol), s, n, p)[0][pr:-pr, pr:-pr]
-            masked = int(((pre > 0) & (want[pr:-pr, pr:-pr] == 0)).sum())
+            pre = pm._match_passes(*plain_volumes(vol), s, n, p)[0][..., pr:-pr, pr:-pr]
+            masked = int(((pre > 0) & (want[..., pr:-pr, pr:-pr] == 0)).sum())
             kept = float((got > 0).float().mean())
             if not (masked > 0 and kept > 0):
-                raise AssertionError(f"{name} {dtype}, {tag} seed: the mask zeroed {masked} "
-                                     f"pixels, {kept} of pixels kept")
-            print(f"[{name}] {dtype}, {tag} seed: bit-identical to the plain twin, "
+                raise AssertionError(f"{name}{tag} {dtype}, {seeds} seed: the mask zeroed "
+                                     f"{masked} pixels, {kept} of pixels kept")
+            print(f"[{name}{tag}] {dtype}, {seeds} seed: bit-identical to the plain twin, "
                   f"{kept:.4f} of pixels kept, {masked} zeroed by the mask")
+    if bounds is None:
+        return dict(max_abs_err=err)
     row = dict(max_abs_err=err, **summarize([measure(
         name, lambda: kernel(vol, seed, noise),
         lambda: pm._match_plain(*plain_volumes(vol), seed, noise, p), 5)]), **bounds)
-    print(f"[{name}] {times_line(row)}; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+    print(f"[{name}{tag}] {times_line(row)}; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
           f"{row['volume_elements']} volume elements), chain of {row['chain_trips']} dependent L2 "
           f"round trips ({row['chain_ms']:.5f} ms at the chase's latency)")
     return row
@@ -622,7 +677,7 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
     return launches, disp, runs
 
 
-def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, match: tuple,
+def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, match: tuple | None,
                 tag="graph") -> float:
     """perception_step captured whole in one CUDA graph, then replayed over
     N_FRAMES perturbed frames copied into its input, every output consumed
@@ -657,11 +712,14 @@ def phase_graph(left_rgb, right_rgb, rig, config, disp, call_runs, match: tuple,
     require_equal(f"{tag}: replayed disparity vs the call path's", out.disparity, disp)
     if not torch.isfinite(out.enhanced_left).all() or not torch.isfinite(out.depth).all():
         raise AssertionError(f"{tag}: non-finite replayed outputs")
+    share = "" if match is None else (
+        f"; the match ({match[0]}, {1e3 * match[1]:.2f} us by graph replay) "
+        f"{100.0 * match[1] / ms_frame:.2f}% of the frame")
     print(f"[{tag}] one CUDA graph a frame, {N_FRAMES} frames: {ms_frame:.3f} ms/frame "
-          f"({1000.0 / ms_frame:.1f} fps) against {statistics.median(call_runs):.3f} ms/frame "
-          f"by calls (median of {len(call_runs)} runs); digest {float(digest):.6e}; "
-          f"frame 0's disparity equal to the call path's; the match ({match[0]}, "
-          f"{1e3 * match[1]:.2f} us by graph replay) {100.0 * match[1] / ms_frame:.2f}% of the frame")
+          f"({1000.0 / ms_frame:.1f} frames a second) against "
+          f"{statistics.median(call_runs):.3f} ms/frame by calls (median of {len(call_runs)} "
+          f"runs); digest {float(digest):.6e}; frame 0's disparity equal to the call "
+          f"path's{share}")
     return ms_frame
 
 
@@ -716,20 +774,23 @@ def phase_cpu_parity(left_rgb, right_rgb, rig, config, disp_gpu: torch.Tensor) -
         raise AssertionError("card and CPU disparities disagree")
 
 
-def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dict) -> dict:
+def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dict,
+                        tag: str = "strips") -> dict:
     """build_volumes (bf16 and float32) and pm_match_strip against their
     plain twins on identical inputs at 720p shapes, the match also against
-    the (H, W, D) match."""
+    the (H, W, D) match. The images may be a batch of cameras, as in
+    phase_kernels."""
     dev = left_rgb.device
     iml = pyr_down(to_grayscale(left_rgb))
     imr = pyr_down(to_grayscale(right_rgb))
     gl, gr = gradient_magnitude(iml), gradient_magnitude(imr)
     D = MAX_DISP // SCALE
-    Hs, Ws = iml.shape
+    Hs, Ws = iml.shape[-2:]
     p = pm.PatchMatchParams(max_disp=D, right_wta=True, volume_bf16=True, use_strip_volumes=True)
     g = sc.strip_geometry(Hs, Ws, D, p.chunks, p.chunks_y)
     a, b = float(np.float32(p.alpha)), float(np.float32(1.0 - p.alpha))
-    print(f"[strips] V_row {(g.chunk_x, g.chunks_x, D, Hs)}, V_col {(g.chunk_y, g.chunks_y, D, Ws)}")
+    print(f"[{tag}] images {tuple(iml.shape)}: V_row {(g.chunk_x, g.chunks_x, D, Hs)}, V_col "
+          f"{(g.chunk_y, g.chunks_y, D, Ws)} a camera")
     rows = {}
 
     vols = {}
@@ -748,25 +809,27 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dic
         rows["build_volumes"] = dict(
             max_abs_err=max(max_abs(vr, vr_p), max_abs(vc, vc_p)),
             **summarize([measure("build_volumes", kernel, plain)]),
-            **bound(4 * Hs * Ws * 4 + (vr.numel() + vc.numel()) * vr.element_size()))
-        print(f"[strips] build_volumes {dtype}: {times_line(rows['build_volumes'])}; bound "
+            **bound(4 * iml.numel() * 4 + (vr.numel() + vc.numel()) * vr.element_size()))
+        print(f"[{tag}] build_volumes {dtype}: {times_line(rows['build_volumes'])}; bound "
               f"{rows['build_volumes']['bound_ms']:.4f} ms")
     C = sc.volume_from_col_strips(vc)
     seed = pm.sparse_wta_seed(C, p)
-    noise = pm.unit_noise(iml.shape, p.noise_seed, device=dev)
+    noise = pm.unit_noise(iml.shape[-2:], p.noise_seed, device=dev)
+
     def plain_volumes(v):
         return sc.volume_from_row_strips(v[0]), sc.volume_from_col_strips(v[1])
 
     rows["pm_match_strip"] = check_match(
         "pm_match_strip", vols, seed, noise, p,
         lambda v, s, n: pm._match_one_side_strips(*v, s, n, p), plain_volumes,
-        match_bound(*plain_volumes(vols[torch.bfloat16]), seed, noise, p, 1, l2))
+        match_bound(*plain_volumes(vols[torch.bfloat16]), seed, noise, p, 1, l2),
+        "" if tag == "strips" else f" {tag}")
     full = pm._match_one_side_strips(vr, vc, seed, noise, p)
     require_equal("pm_match_strip vs the (H, W, D) match", full,
                   pm._match_one_side(C, seed, noise, p))
     hwd_ms = call_ms(lambda: pm._match_one_side(C, seed, noise, p))
     hwd_dev = graph_ms(lambda: pm._match_one_side(C, seed, noise, p))
-    print(f"[strips] pm_match_strip: call {rows['pm_match_strip']['call_ms']:.4f} ms vs the (H, W, "
+    print(f"[{tag}] pm_match_strip: call {rows['pm_match_strip']['call_ms']:.4f} ms vs the (H, W, "
           f"D) match's {hwd_ms:.4f} ms; device (graph replay) "
           f"{rows['pm_match_strip']['graph_ms']:.4f} vs {hwd_dev:.4f} ms; equal to it, "
           f"valid {(full > 0).float().mean().item():.3f}")
@@ -775,10 +838,10 @@ def phase_strip_kernels(left_rgb: torch.Tensor, right_rgb: torch.Tensor, l2: dic
     p_hwd = dataclasses.replace(p, use_strip_volumes=False)
     turns = [call_ms(lambda q=q: pm.patchmatch_disparity(iml, imr, q), 10)
              for q in (p_hwd, p, p, p_hwd)]
-    print(f"[strips] patchmatch_disparity at {Hs}x{Ws}, in turns: (H, W, D) {turns[0]:.4f}, "
+    print(f"[{tag}] patchmatch_disparity at {Hs}x{Ws}, in turns: (H, W, D) {turns[0]:.4f}, "
           f"strips {turns[1]:.4f}, strips {turns[2]:.4f}, (H, W, D) {turns[3]:.4f} ms")
     for name, row in rows.items():
-        print(f"[strips] {name}: {times_line(row)}; bound {row['bound_ms']:.5f} ms "
+        print(f"[{tag}] {name}: {times_line(row)}; bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']}), max |diff| {row['max_abs_err']}")
     return rows
 
@@ -1226,6 +1289,183 @@ def phase_frontend_cpu_parity(fe, rig, config) -> None:
         raise AssertionError("card and CPU frontends disagree")
 
 
+def kernel_count(fn, n: int = 2) -> dict:
+    """CUDA kernels one call of fn() runs, by name: those ``torch.profiler``
+    recorded over n calls (memory copies and sets not counted), over n."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / n for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def count_changes(one: dict, many: dict, top: int = 8) -> str:
+    """The kernels whose count a call differs between two kernel_count
+    readings, the largest differences first."""
+    diff = {k: many.get(k, 0.0) - one.get(k, 0.0) for k in one.keys() | many.keys()}
+    diff = sorted(((d, k) for k, d in diff.items() if d), key=lambda t: -abs(t[0]))
+    return "; ".join(f"{d:+g} {k[:90]}" for d, k in diff[:top]) or "none"
+
+
+def graph_kernel_nodes(fn) -> int | None:
+    """Kernel nodes of one call of fn() captured in a CUDA graph, as
+    libcuda's cuGraphGetNodes and cuGraphNodeGetType list them; None where
+    this torch cannot keep the captured graph."""
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    drv.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    drv.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if drv.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def peak_bytes(fn) -> tuple[int, int]:
+    """torch.cuda.max_memory_allocated over one call of fn(), and the part
+    of it above what was allocated before the call (the call's own)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - before
+
+
+def require_enhance_close(tag: str, batched, single, nudged) -> str:
+    """The batched enhanced image within the enhance tolerance of the
+    one-camera one (see the module docstring); nudged is the one-camera
+    enhancement of the input moved by one ulp."""
+    diff = (batched - single).abs().flatten().float()
+    spread = (nudged - single).abs().flatten().float()
+    q = torch.tensor([0.5, 0.999], device=diff.device)
+    dq = [float(v) for v in torch.quantile(diff, q)]
+    sq = [float(v) for v in torch.quantile(spread, q)]
+    line = (f"|batched - single| median {dq[0]:.3e}, 99.9% {dq[1]:.3e}, max {float(diff.max()):.3e}"
+            f"; one-ulp spread median {sq[0]:.3e}, 99.9% {sq[1]:.3e}")
+    if not (dq[0] <= 2 * sq[0] and dq[1] <= 2 * sq[1]):
+        raise AssertionError(f"{tag}: enhanced image outside the enhance tolerance: {line}")
+    return line
+
+
+def phase_batched(canvas, rig, config, rows: dict, l2: dict) -> dict:
+    """perception_step on N_CAMERAS cameras in one call (see the module
+    docstring, phase 12); returns the batched kernels' rows, each with its
+    launches on the batched path."""
+    from ocean_perception_tpu_torch.imaging.enhance import enhance_underwater
+
+    dev = torch.device("cuda", 0)
+    B = N_CAMERAS
+    pairs = [make_inputs(canvas, i) for i in range(B)]
+    left = torch.as_tensor(np.stack([l for l, _ in pairs]), device=dev)
+    right = torch.as_tensor(np.stack([r for _, r in pairs]), device=dev)
+    krows = phase_kernels(left, right, l2, f" B={B}")
+    krows.update(phase_strip_kernels(left, right, l2, f"strips B={B}"))
+    phase_kernels(left, right, None, f" farm B={B}", FARM_SCALE)
+    for name, row in krows.items():
+        one = rows[name]
+        print(f"[batched kernels] {name}, B={B} in one launch: device {row['device_ms']:.5f} ms "
+              f"against {one['device_ms']:.5f} at B=1 ({row['device_ms'] / one['device_ms']:.3f}x); "
+              f"bound {row['bound_ms']:.5f} ms against {one['bound_ms']:.5f}"
+              + (f"; chain {row['chain_ms']:.5f} ms ({row['chain_trips']} trips) against "
+                 f"{one['chain_ms']:.5f}" if "chain_ms" in row else ""))
+    configs = {
+        "(H, W, D)": (config, PER_FRAME),
+        "strips": (dataclasses.replace(config, use_strip_volumes=True), PER_STRIP_FRAME),
+        f"farm (internal_scale={FARM_SCALE})": (
+            dataclasses.replace(config, internal_scale=FARM_SCALE), PER_FRAME),
+    }
+    for tag, (cfg, per_call) in configs.items():
+        def step(l=left, r=right, cfg=cfg):
+            return perception_step(l, r, rig, cfg, device=dev)
+
+        singles = [step(left[b], right[b]) for b in range(B)]
+        step()  # warm-up
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        out = step()
+        launches = dict(cuda.LAUNCHES)
+        require_launches(f"batched {tag}", launches, per_call, 1)
+        for k, n in launches.items():
+            if n:
+                krows[k]["launches"] = n
+        if out.disparity.shape != (B, H, W) or out.enhanced_left.shape != (B, H, W, 3):
+            raise AssertionError(f"batched {tag}: bad output shapes")
+        for field, t in out._asdict().items():
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"batched {tag}: non-finite {field}")
+        lines = []
+        for b, one in enumerate(singles):
+            require_equal(f"batched {tag} camera {b} disparity vs one camera's", out.disparity[b],
+                          one.disparity)
+            require_equal(f"batched {tag} camera {b} depth vs one camera's", out.depth[b],
+                          one.depth)
+            nudged, _ = enhance_underwater(left[b] * float(np.float32(1 + 2.0**-23)), one.depth,
+                                           cfg.enhance)
+            lines.append(require_enhance_close(f"batched {tag} camera {b}", out.enhanced_left[b],
+                                               one.enhanced_left, nudged))
+            med, frac = accuracy(out.disparity[b])
+            lines[-1] += f"; median |disp - {TRUE_DISP}| {med:.4f} px, valid {frac:.4f}"
+            # The farm point's quarter resolution is held to its one-camera
+            # step only.
+            if cfg.internal_scale == SCALE and not (med < 1.0 and frac > 0.5):
+                raise AssertionError(f"batched {tag} camera {b}: median |disp - {TRUE_DISP}| "
+                                     f"{med} px, valid {frac}")
+        sites = sync_sites(step)
+        torch.cuda.synchronize()
+        print_syncs(f"batched {tag}", sites)
+        if sites:
+            raise AssertionError(f"batched {tag}: perception_step made {len(sites)} host syncs")
+
+        calls_b = call_ms(step, 5)
+        calls_1 = call_ms(lambda: step(left[0], right[0]), 5)
+        graph_b = phase_graph(left, right, rig, cfg, out.disparity, [calls_b], None,
+                              f"batched {tag} graph, B={B}")
+        graph_1 = phase_graph(left[0], right[0], rig, cfg, singles[0].disparity, [calls_1], None,
+                              f"batched {tag} graph, B=1")
+        count_1 = kernel_count(lambda: step(left[0], right[0]))
+        count_b = kernel_count(step)
+        nodes_1 = graph_kernel_nodes(lambda: step(left[0], right[0]))
+        nodes_b = graph_kernel_nodes(step)
+        mem_1 = peak_bytes(lambda: step(left[0], right[0]))
+        mem_b = peak_bytes(step)
+        for b, line in enumerate(lines):
+            print(f"[batched {tag}] camera {b}: disparity and depth equal to the one-camera "
+                  f"step's; enhanced {line}")
+        print(f"[batched {tag}] B={B}: {calls_b:.3f} ms a call by calls, {graph_b:.3f} ms by "
+              f"graph ({B * 1000.0 / graph_b:.1f} fps per GPU; by calls "
+              f"{B * 1000.0 / calls_b:.1f}); B=1: {calls_1:.3f} ms by calls, {graph_1:.3f} ms "
+              f"by graph ({1000.0 / graph_1:.1f} fps); graph B={B} / ({B} x B=1) "
+              f"{graph_b / (B * graph_1):.3f}; launches {launches}; CUDA kernels a call "
+              f"(profiler) B=1 {sum(count_1.values()):.1f}, B={B} {sum(count_b.values()):.1f}, "
+              f"kernel nodes of its CUDA graph B=1 {nodes_1}, B={B} {nodes_b}; peak device memory "
+              f"(max_memory_allocated) B=1 {mem_1[0] / 2**20:.1f} MiB ({mem_1[1] / 2**20:.1f} the "
+              f"call's own), B={B} {mem_b[0] / 2**20:.1f} MiB ({mem_b[1] / 2**20:.1f})")
+        print(f"[batched {tag}] kernels a call, B={B} less B=1 (profiler): "
+              f"{count_changes(count_1, count_b)}")
+    return krows
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -1261,12 +1501,16 @@ def main() -> int:
     phase_frontend_graph(fe, rig, config, 2 * rows["lk_track"]["device_ms"])
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
+    batched = phase_batched(canvas, rig, config, rows, l2)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
     # perception_step with strip volumes, LK's from full_frontend_step.
     launches.update({k: strip_launches[k] for k in PER_STRIP_FRAME})
     launches["lk_track"] = fe["launches"]["lk_track"]
+    # The batched path's numbers beside each stereo kernel's row (phase 12).
+    for k, row in batched.items():
+        rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=launches[k], library_ms=None, **rows[k])

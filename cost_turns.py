@@ -58,8 +58,8 @@ def build(name: str, src_dir, edits=()) -> turns.Build:
     texts = {f: turns.edited((src_dir / f).read_text(),
                              [(old, new) for g, old, new in edits if g == f], f"{name}: {f}")
              for f in FILES}
-    return turns.Build(texts, {fn: cuda._SIGNATURES[fn]
-                               for fn in ("opt_cost_volume", "opt_build_volumes")})
+    return turns.Build(texts, turns.signatures(texts.values(),
+                                               ("opt_cost_volume", "opt_build_volumes")))
 
 
 def main() -> int:
@@ -98,7 +98,8 @@ def main() -> int:
     builds = {name: build(name, d) for name, d in sources.items()}
     builds["this"] = build("this", cuda._CSRC)
     builds.update({name: build(name, cuda._CSRC, edits) for name, edits in VARIANTS.items()})
-    libs = turns.build_all("cost_turns", builds)
+    libs = {name: turns.loaded(lib, builds[name].files.values())
+            for name, lib in turns.build_all("cost_turns", builds).items()}
     for name, lib in libs.items():
         cuda.library = lambda lib=lib: lib
         for dt in dtypes:

@@ -23,7 +23,13 @@
 // images the only shared-memory reads. A lane of an output row writes its
 // pixel's 8 costs of a step as one 16-byte vector (two in float32): a warp's
 // store covers kBand rows x 64 contiguous bytes. The grid is one block per
-// tile.
+// tile and camera: a batch of B stereo pairs, (B, H, W) images and a
+// (B, H, W, D) volume, is one launch, the camera beside the disparity
+// blocks in gridDim.z. A one-camera launch takes the kernel built without
+// the camera (kBatch false), the code of the one-camera kernel before the
+// batch: the camera's decode and pointer offsets cost the batched build
+// 1.3-1.5% of its float32 device time at one camera (bf16 0-1.2% less), in
+// turns in three runs on an H100 (PERF.md).
 
 #include "cost_terms.cuh"
 
@@ -125,13 +131,23 @@ __device__ __forceinline__ void sweep_row(const CostTile& t, int xs, int dbase, 
   }
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 cost_volume_kernel(const float* __restrict__ iml, const float* __restrict__ imr,
                    const float* __restrict__ gl, const float* __restrict__ gr,
                    T* __restrict__ out, int H, int W, int D, float alpha, float beta, int vec) {
   __shared__ __align__(16) float img[CostTile::floats(kBand, kTX, kDB)];
-  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kBand, d_lo = blockIdx.z * kDB;
+  const int d_blocks = (D + kDB - 1) / kDB, cam = kBatch ? blockIdx.z / d_blocks : 0;
+  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kBand;
+  const int d_lo = (kBatch ? blockIdx.z % d_blocks : blockIdx.z) * kDB;
+  if (kBatch) {  // this camera's images and volume
+    const long long pixels = (long long)H * W;
+    iml += cam * pixels;
+    imr += cam * pixels;
+    gl += cam * pixels;
+    gr += cam * pixels;
+    out += cam * pixels * D;
+  }
   CostTile t;
   t.stage(img, iml, imr, gl, gr, H, W, y0, x0, kBand, kTX, d_lo, d_lo + kDB);
   __syncthreads();
@@ -156,24 +172,26 @@ cost_volume_kernel(const float* __restrict__ iml, const float* __restrict__ imr,
 }
 
 template <typename T>
-int launch(const void* iml, const void* imr, const void* gl, const void* gr, void* out, int H,
-           int W, int D, float alpha, float beta, cudaStream_t s) {
-  // 16-byte stores need whole chunks of 8 d at 16-byte aligned addresses.
+int launch(const void* iml, const void* imr, const void* gl, const void* gr, void* out, int B,
+           int H, int W, int D, float alpha, float beta, cudaStream_t s) {
+  // 16-byte stores need whole chunks of 8 d at 16-byte aligned addresses
+  // (each camera's volume then starts aligned too).
   const int vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const dim3 grid((W + kTX - 1) / kTX, (H + kBand - 1) / kBand, (D + kDB - 1) / kDB);
-  cost_volume_kernel<T><<<grid, kThreads, 0, s>>>((const float*)iml, (const float*)imr,
-                                                 (const float*)gl, (const float*)gr, (T*)out, H,
-                                                 W, D, alpha, beta, vec);
+  const dim3 grid((W + kTX - 1) / kTX, (H + kBand - 1) / kBand, B * ((D + kDB - 1) / kDB));
+  (B > 1 ? cost_volume_kernel<T, true> : cost_volume_kernel<T, false>)<<<grid, kThreads, 0, s>>>(
+      (const float*)iml, (const float*)imr, (const float*)gl, (const float*)gr, (T*)out, H, W, D,
+      alpha, beta, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// B stereo pairs, (B, H, W) float32 images, into the (B, H, W, D) volume out.
 extern "C" int opt_cost_volume(const void* iml, const void* imr, const void* gl,
-                               const void* gr, void* out, int H, int W, int D,
+                               const void* gr, void* out, int B, int H, int W, int D,
                                float alpha, float beta, int out_bf16, void* stream) {
-  if ((long long)H * W * D == 0) return 0;
+  if ((long long)B * H * W * D == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return out_bf16 ? launch<__nv_bfloat16>(iml, imr, gl, gr, out, H, W, D, alpha, beta, s)
-                  : launch<float>(iml, imr, gl, gr, out, H, W, D, alpha, beta, s);
+  return out_bf16 ? launch<__nv_bfloat16>(iml, imr, gl, gr, out, B, H, W, D, alpha, beta, s)
+                  : launch<float>(iml, imr, gl, gr, out, B, H, W, D, alpha, beta, s);
 }

@@ -29,7 +29,16 @@
 // buffers: row passes write buffer 0, column passes buffer 1. Every front
 // load goes through L2 only (ld.global.cg), since other blocks wrote the
 // front earlier in the same launch. A row pass is one work item per
-// (kLanes rows, strip), a column pass one per (kColumns columns, strip).
+// (camera, kLanes rows, strip), a column pass one per (camera, kColumns
+// columns, strip).
+//
+// A launch matches a batch of B cameras: B volumes, seeds, front pairs and
+// outputs, one after another in memory, and one (H, W) noise image that all
+// share. Each pass's items are the B cameras' items, which the blocks walk
+// in one loop, so the grid barriers stay one a pass for the whole batch. A
+// one-camera launch takes the kernel built without the camera (kBatch
+// false): the camera's decode cost the batched build 2.5% of the match's
+// device time at one camera, in turns on an H100 (PERF.md).
 //
 // The passes follow the reference CUDA design (patchmatch_gpu.cu:116-230)
 // in what they compute: each (strip, lane) walks its chunk + 2*halo
@@ -131,11 +140,15 @@ constexpr int kSpecRowStrips = 1;
 
 // The three volume layouts. at(y, x, d) is the cost of disparity d at pixel
 // (y, x); x is the column, y the row.
+// at(y, x, d) is the volume of the camera set by camera(), H*W*D elements
+// (volume) after the previous one's.
 template <typename T>
 struct Hwd {
   static constexpr int kSpec = kSpecHwd;
   const T* C;
   int W, D;
+  long long volume;
+  __device__ __forceinline__ Hwd camera(int b) const { return {C + b * volume, W, D, volume}; }
   __device__ __forceinline__ T at(int y, int x, int d) const {
     return C[((long long)y * W + x) * D + d];
   }
@@ -146,6 +159,10 @@ struct RowStrips {  // V_row (chunk, chunks, D, H), x = c*chunk + i
   static constexpr int kSpec = kSpecRowStrips;
   const T* V;
   int H, D, chunk, chunks;
+  long long volume;
+  __device__ __forceinline__ RowStrips camera(int b) const {
+    return {V + b * volume, H, D, chunk, chunks, volume};
+  }
   __device__ __forceinline__ T at(int y, int x, int d) const {
     const int i = x % chunk, c = x / chunk;
     return V[((long long)(i * chunks + c) * D + d) * H + y];
@@ -156,21 +173,25 @@ template <typename T>
 struct ColStrips {  // V_col (chunk, chunks, D, W), y = c*chunk + i
   const T* V;
   int W, D, chunk, chunks;
+  long long volume;
+  __device__ __forceinline__ ColStrips camera(int b) const {
+    return {V + b * volume, W, D, chunk, chunks, volume};
+  }
   __device__ __forceinline__ T at(int y, int x, int d) const {
     const int i = y % chunk, c = y / chunk;
     return V[((long long)(i * chunks + c) * D + d) * W + x];
   }
 };
 
-// One match: its inputs, its two front buffers and its output, all (H, W).
+// One launch's matches, B cameras: their inputs, front buffers and outputs.
 template <typename T>
 struct Match {
-  const float* seed;   // starting disparities
-  const float* noise;  // unit noise, scaled by scale0 / 2^it in iteration it
-  float* disp[2];      // fronts: row passes write buffer 0, column passes 1
-  T* cost[2];
-  float* out;          // the masked disparity
-  int H, W, D, pr, halo, chunks_x, chunk_x, chunks_y, chunk_y, iters;
+  const float* seed;   // (B, H, W) starting disparities
+  const float* noise;  // (H, W) unit noise, scaled by scale0 / 2^it in iteration it
+  float* disp;         // (B, 2, H, W) fronts: row passes write buffer 0, column passes 1
+  T* cost;             // (B, 2, H, W)
+  float* out;          // (B, H, W) masked disparities
+  int B, H, W, D, pr, halo, chunks_x, chunk_x, chunks_y, chunk_y, iters;
   float scale0, improve;
 };
 
@@ -332,11 +353,11 @@ __device__ __forceinline__ void row_pass(const Vol& vol, const Match<T>& a, cons
 
 // One column pass (scan along y) of column x in strip c. With kMask (the
 // match's last pass) each position of the strip's own chunk writes the
-// masked disparity to a.out instead of its fronts.
+// masked disparity to out instead of its fronts.
 template <bool kMask, typename T, typename Vol>
 __device__ __forceinline__ void col_pass(const Vol& vol, const Match<T>& a, const float* disp_in,
                                          const T* cost_in, float* disp_out, T* cost_out,
-                                         bool forward, int x, int c) {
+                                         float* out, bool forward, int x, int c) {
   const int H = a.H, W = a.W, D = a.D, pr = a.pr, halo = a.halo, chunk = a.chunk_y;
   const int w = chunk + 2 * halo;
   const int start = c * chunk - halo;
@@ -365,7 +386,7 @@ __device__ __forceinline__ void col_pass(const Vol& vol, const Match<T>& a, cons
       if (kMask) {
         const bool keep = to_f(cost) < __fmul_rn(a.improve, to_f(vol.at(y, x, 0)));
         const bool interior = y >= pr && y <= H - pr - 1 && col_ok;
-        a.out[p] = keep && interior ? carry : 0.f;
+        out[p] = keep && interior ? carry : 0.f;
       } else {
         disp_out[p] = carry;
         cost_out[p] = cost;
@@ -375,8 +396,9 @@ __device__ __forceinline__ void col_pass(const Vol& vol, const Match<T>& a, cons
 }
 
 // Every pass of the match, in one cooperative launch; pass ph is pass
-// ph % 4 (R+ C+ R- C-) of iteration ph / 4.
-template <typename T, typename RowVol, typename ColVol>
+// ph % 4 (R+ C+ R- C-) of iteration ph / 4. Item i of a pass is item
+// i % items of camera i / items.
+template <typename T, typename RowVol, typename ColVol, bool kBatch>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pm_match_kernel(RowVol rvol, ColVol cvol, Match<T> a) {
   __shared__ float td[kSegment][kLanes + 1];
@@ -384,58 +406,75 @@ pm_match_kernel(RowVol rvol, ColVol cvol, Match<T> a) {
   T* tc = reinterpret_cast<T*>(tc_raw);
   const int row_blocks = (a.H + kLanes - 1) / kLanes;
   const int col_tiles = (a.W + kColumns - 1) / kColumns;
+  const int row_items = row_blocks * a.chunks_x, col_items = col_tiles * a.chunks_y;
+  const long long hw = (long long)a.H * a.W;
+  const int B = kBatch ? a.B : 1;
   for (int ph = 0; ph < 4 * a.iters; ++ph) {
     if (ph > 0) cg::this_grid().sync();
     const int it = ph / 4, k = ph % 4;
     const bool forward = k < 2;
     if (k % 2 == 0) {  // R+ (with the refresh) or R-: buffer 1 (or the seed) to buffer 0
-      const float* disp_in = ph == 0 ? a.seed : a.disp[1];
       const float scale = ldexpf(a.scale0, -it);
-      for (int item = blockIdx.x; item < row_blocks * a.chunks_x; item += gridDim.x) {
-        const int y0 = item % row_blocks * kLanes, c = item / row_blocks;
+      for (int item = blockIdx.x; item < B * row_items; item += gridDim.x) {
+        const int b = kBatch ? item / row_items : 0, r = item - b * row_items;
+        const int y0 = r % row_blocks * kLanes, c = r / row_blocks;
+        float* disp = a.disp + 2 * b * hw;  // this camera's two buffers
+        T* cost = a.cost + 2 * b * hw;
+        const float* disp_in = ph == 0 ? a.seed + b * hw : disp + hw;
         if (k == 0) {
-          row_pass<true>(rvol, a, disp_in, a.cost[1], scale, a.disp[0], a.cost[0], forward, y0,
+          row_pass<true>(rvol.camera(b), a, disp_in, cost + hw, scale, disp, cost, forward, y0,
                          c, td, tc);
         } else {
-          row_pass<false>(rvol, a, disp_in, a.cost[1], scale, a.disp[0], a.cost[0], forward, y0,
+          row_pass<false>(rvol.camera(b), a, disp_in, cost + hw, scale, disp, cost, forward, y0,
                           c, td, tc);
         }
       }
     } else {  // C+ or C- (with the mask, last): buffer 0 to buffer 1 (or the output)
       const bool last = ph == 4 * a.iters - 1;
-      for (int item = blockIdx.x; item < col_tiles * a.chunks_y; item += gridDim.x) {
-        const int x = item % col_tiles * kColumns + threadIdx.x, c = item / col_tiles;
+      for (int item = blockIdx.x; item < B * col_items; item += gridDim.x) {
+        const int b = kBatch ? item / col_items : 0, r = item - b * col_items;
+        const int x = r % col_tiles * kColumns + threadIdx.x, c = r / col_tiles;
         if (threadIdx.x >= kColumns || x >= a.W) continue;
+        float* disp = a.disp + 2 * b * hw;
+        T* cost = a.cost + 2 * b * hw;
         if (last) {
-          col_pass<true>(cvol, a, a.disp[0], a.cost[0], a.disp[1], a.cost[1], forward, x, c);
+          col_pass<true>(cvol.camera(b), a, disp, cost, disp + hw, cost + hw, a.out + b * hw,
+                         forward, x, c);
         } else {
-          col_pass<false>(cvol, a, a.disp[0], a.cost[0], a.disp[1], a.cost[1], forward, x, c);
+          col_pass<false>(cvol.camera(b), a, disp, cost, disp + hw, cost + hw, a.out + b * hw,
+                          forward, x, c);
         }
       }
     }
   }
 }
 
+// Blocks of kernel that can be resident at once on the current device.
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return per_sm * sms;
+}
+
 template <typename T, typename RowVol, typename ColVol>
 int match(RowVol rvol, ColVol cvol, const Match<T>& a, cudaStream_t s) {
-  const auto kernel = pm_match_kernel<T, RowVol, ColVol>;
-  const int row_items = (a.H + kLanes - 1) / kLanes * a.chunks_x;
-  const int col_items = (a.W + kColumns - 1) / kColumns * a.chunks_y;
-  // Blocks that can be resident at once, counted once on the current device.
-  static const int resident = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pm_match_kernel<T, RowVol, ColVol>,
-                                                  kThreads, 0);
-    return per_sm * sms;
-  }();
-  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const bool batch = a.B > 1;
+  const auto kernel = batch ? pm_match_kernel<T, RowVol, ColVol, true>
+                            : pm_match_kernel<T, RowVol, ColVol, false>;
+  const int row_items = a.B * ((a.H + kLanes - 1) / kLanes * a.chunks_x);
+  const int col_items = a.B * ((a.W + kColumns - 1) / kColumns * a.chunks_y);
+  // Counted once on the current device, for each of the two kernels.
+  static const int resident[2] = {resident_blocks(pm_match_kernel<T, RowVol, ColVol, false>),
+                                  resident_blocks(pm_match_kernel<T, RowVol, ColVol, true>)};
+  if (resident[batch] < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
-  cfg.gridDim = dim3(std::min(resident, std::max(row_items, col_items)));
+  cfg.gridDim = dim3(std::min(resident[batch], std::max(row_items, col_items)));
   cfg.blockDim = dim3(kThreads);
   cfg.stream = s;
   cfg.attrs = attr;
@@ -447,16 +486,15 @@ int match(RowVol rvol, ColVol cvol, const Match<T>& a, cudaStream_t s) {
 
 template <typename T>
 Match<T> match_args(const void* seed, const void* noise, void* disp, void* cost, void* out,
-                    int H, int W, int D, int chunks_x, int chunks_y, int halo, int pr, int iters,
-                    float scale0, float improve) {
+                    int B, int H, int W, int D, int chunks_x, int chunks_y, int halo, int pr,
+                    int iters, float scale0, float improve) {
   Match<T> a;
   a.seed = (const float*)seed;
   a.noise = (const float*)noise;
-  a.disp[0] = (float*)disp;
-  a.disp[1] = (float*)disp + (long long)H * W;
-  a.cost[0] = (T*)cost;
-  a.cost[1] = (T*)cost + (long long)H * W;
+  a.disp = (float*)disp;
+  a.cost = (T*)cost;
   a.out = (float*)out;
+  a.B = B;
   a.H = H;
   a.W = W;
   a.D = D;
@@ -474,52 +512,54 @@ Match<T> match_args(const void* seed, const void* noise, void* disp, void* cost,
 
 template <typename T>
 int match_hwd(const void* C, const void* seed, const void* noise, void* disp, void* cost,
-              void* out, int H, int W, int D, int chunks_x, int chunks_y, int halo, int pr,
+              void* out, int B, int H, int W, int D, int chunks_x, int chunks_y, int halo, int pr,
               int iters, float scale0, float improve, cudaStream_t s) {
-  const Hwd<T> vol{(const T*)C, W, D};
-  return match(vol, vol, match_args<T>(seed, noise, disp, cost, out, H, W, D, chunks_x, chunks_y,
-                                       halo, pr, iters, scale0, improve), s);
+  const Hwd<T> vol{(const T*)C, W, D, (long long)H * W * D};
+  return match(vol, vol, match_args<T>(seed, noise, disp, cost, out, B, H, W, D, chunks_x,
+                                       chunks_y, halo, pr, iters, scale0, improve), s);
 }
 
 template <typename T>
 int match_strips(const void* V_row, const void* V_col, const void* seed, const void* noise,
-                 void* disp, void* cost, void* out, int H, int W, int D, int chunks_x,
+                 void* disp, void* cost, void* out, int B, int H, int W, int D, int chunks_x,
                  int chunks_y, int halo, int pr, int iters, float scale0, float improve,
                  cudaStream_t s) {
-  const RowStrips<T> rvol{(const T*)V_row, H, D, W / chunks_x, chunks_x};
-  const ColStrips<T> cvol{(const T*)V_col, W, D, H / chunks_y, chunks_y};
-  return match(rvol, cvol, match_args<T>(seed, noise, disp, cost, out, H, W, D, chunks_x,
+  const long long volume = (long long)H * W * D;
+  const RowStrips<T> rvol{(const T*)V_row, H, D, W / chunks_x, chunks_x, volume};
+  const ColStrips<T> cvol{(const T*)V_col, W, D, H / chunks_y, chunks_y, volume};
+  return match(rvol, cvol, match_args<T>(seed, noise, disp, cost, out, B, H, W, D, chunks_x,
                                          chunks_y, halo, pr, iters, scale0, improve), s);
 }
 
 }  // namespace
 
-// The whole one-side match over the (H, W, D) volume C. disp and cost are
-// the two front buffers, (2, H, W) each, in float32 and in C's dtype; out is
-// the (H, W) masked disparity. The strips tile the axes: chunks_x divides W
+// The whole one-side match of B cameras over their (B, H, W, D) volume C.
+// seed is (B, H, W), noise one (H, W) image for all; disp and cost are the
+// front buffers, (B, 2, H, W) each, in float32 and in C's dtype; out is the
+// (B, H, W) masked disparity. The strips tile the axes: chunks_x divides W
 // and chunks_y divides H.
 extern "C" int opt_pm_match(const void* C, const void* seed, const void* noise, void* disp,
-                            void* cost, void* out, int H, int W, int D, int chunks_x,
+                            void* cost, void* out, int B, int H, int W, int D, int chunks_x,
                             int chunks_y, int halo, int pr, int iters, float scale0,
                             float improve, int bf16, void* stream) {
-  if (H * W == 0 || iters < 1) return 0;
+  if ((long long)B * H * W == 0 || iters < 1) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return (bf16 ? match_hwd<__nv_bfloat16> : match_hwd<float>)(
-      C, seed, noise, disp, cost, out, H, W, D, chunks_x, chunks_y, halo, pr, iters, scale0,
+      C, seed, noise, disp, cost, out, B, H, W, D, chunks_x, chunks_y, halo, pr, iters, scale0,
       improve, s);
 }
 
-// The match over the strip layouts: V_row (W / chunks_x, chunks_x, D, H)
-// for row passes, V_col (H / chunks_y, chunks_y, D, W) for column passes;
+// The match over the strip layouts: V_row (B, W / chunks_x, chunks_x, D, H)
+// for row passes, V_col (B, H / chunks_y, chunks_y, D, W) for column passes;
 // the passes' strips are the layouts' strips.
 extern "C" int opt_pm_match_strip(const void* V_row, const void* V_col, const void* seed,
-                                  const void* noise, void* disp, void* cost, void* out, int H,
-                                  int W, int D, int chunks_x, int chunks_y, int halo, int pr,
-                                  int iters, float scale0, float improve, int bf16,
+                                  const void* noise, void* disp, void* cost, void* out, int B,
+                                  int H, int W, int D, int chunks_x, int chunks_y, int halo,
+                                  int pr, int iters, float scale0, float improve, int bf16,
                                   void* stream) {
-  if (H * W == 0 || iters < 1) return 0;
+  if ((long long)B * H * W == 0 || iters < 1) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return (bf16 ? match_strips<__nv_bfloat16> : match_strips<float>)(
-      V_row, V_col, seed, noise, disp, cost, out, H, W, D, chunks_x, chunks_y, halo, pr, iters,
+      V_row, V_col, seed, noise, disp, cost, out, B, H, W, D, chunks_x, chunks_y, halo, pr, iters,
       scale0, improve, s);
 }

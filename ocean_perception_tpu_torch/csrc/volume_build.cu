@@ -21,7 +21,12 @@
 // from that tile as 16-byte vectors: a thread writes 8 consecutive x of a
 // V_col row, and 8 consecutive y of a V_row row (the tile read down a
 // column, which transposes it). Rows whose length breaks 16-byte alignment
-// (W or H not a multiple of 8) take scalar stores.
+// (W or H not a multiple of 8) take scalar stores. A batch of B stereo
+// pairs is one launch: (B, H, W) images and both layouts with a leading B,
+// the camera beside the disparity blocks in gridDim.z. A one-camera launch
+// takes the kernel built without the camera (kBatch false): the camera's
+// decode and pointer offsets cost the batched build 3% of its device time
+// in bf16 and 17% in float32 at one camera, in turns on an H100 (PERF.md).
 
 #include "cost_terms.cuh"
 
@@ -44,7 +49,7 @@ constexpr size_t smem_bytes() {
                           2 * kRows * kCols + 2 * kRows * (kTX + kDZ + 1));
 }
 
-template <typename T>
+template <typename T, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 build_volumes_kernel(const float* __restrict__ iml, const float* __restrict__ imr,
                      const float* __restrict__ gl, const float* __restrict__ gr,
@@ -55,8 +60,19 @@ build_volumes_kernel(const float* __restrict__ iml, const float* __restrict__ im
   float* e_s = smem;                       // [kDG][kRows][kCols] e-terms, x fastest
   float* c_s = e_s + kDG * kRows * kCols;  // [kDG][kTY][kCP] costs, x fastest
   float* img = c_s + kDG * kTY * kCP;      // the CostTile images
+  const int d_blocks = (D + kDZ - 1) / kDZ, cam = kBatch ? blockIdx.z / d_blocks : 0;
   const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
-  const int dz_lo = blockIdx.z * kDZ, dz_hi = min(dz_lo + kDZ, D);
+  const int dz_lo = (kBatch ? blockIdx.z % d_blocks : blockIdx.z) * kDZ;
+  const int dz_hi = min(dz_lo + kDZ, D);
+  if (kBatch) {  // this camera's images and layouts
+    const long long pixels = (long long)H * W;
+    iml += cam * pixels;
+    imr += cam * pixels;
+    gl += cam * pixels;
+    gr += cam * pixels;
+    V_row += cam * pixels * D;
+    V_col += cam * pixels * D;
+  }
   // Strip rows of the tile's pixels: (i * chunks + c) of V_col for each y,
   // of V_row for each x.
   __shared__ int col_strip_row[kTY], row_strip_row[kTX];
@@ -142,17 +158,19 @@ build_volumes_kernel(const float* __restrict__ iml, const float* __restrict__ im
 
 template <typename T>
 int launch(const void* iml, const void* imr, const void* gl, const void* gr, void* V_row,
-           void* V_col, int H, int W, int D, float alpha, float beta, int chunks_x, int chunks_y,
-           cudaStream_t s) {
-  static bool shared_set[64] = {};
-  const cudaError_t attr = allow_shared(build_volumes_kernel<T>, (int)smem_bytes(), shared_set);
+           void* V_col, int B, int H, int W, int D, float alpha, float beta, int chunks_x,
+           int chunks_y, cudaStream_t s) {
+  static bool shared_set[2][64] = {};
+  const auto kernel = B > 1 ? build_volumes_kernel<T, true> : build_volumes_kernel<T, false>;
+  const cudaError_t attr = allow_shared(kernel, (int)smem_bytes(), shared_set[B > 1]);
   if (attr != cudaSuccess) return (int)attr;
   // A row of either layout takes 16-byte stores when its length is a
-  // multiple of 8 elements and the layout starts 16-byte aligned.
+  // multiple of 8 elements and the layout starts 16-byte aligned (so then
+  // does each camera's).
   const int vec_row = H % 8 == 0 && reinterpret_cast<uintptr_t>(V_row) % 16 == 0;
   const int vec_col = W % 8 == 0 && reinterpret_cast<uintptr_t>(V_col) % 16 == 0;
-  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, (D + kDZ - 1) / kDZ);
-  build_volumes_kernel<T><<<grid, kThreads, smem_bytes(), s>>>(
+  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, B * ((D + kDZ - 1) / kDZ));
+  kernel<<<grid, kThreads, smem_bytes(), s>>>(
       (const float*)iml, (const float*)imr, (const float*)gl, (const float*)gr, (T*)V_row,
       (T*)V_col, H, W, D, alpha, beta, chunks_x, W / chunks_x, chunks_y, H / chunks_y, vec_row,
       vec_col);
@@ -161,14 +179,16 @@ int launch(const void* iml, const void* imr, const void* gl, const void* gr, voi
 
 }  // namespace
 
+// B stereo pairs, (B, H, W) float32 images, into V_row (B, W / chunks_x,
+// chunks_x, D, H) and V_col (B, H / chunks_y, chunks_y, D, W).
 extern "C" int opt_build_volumes(const void* iml, const void* imr, const void* gl,
-                                 const void* gr, void* V_row, void* V_col, int H, int W, int D,
-                                 float alpha, float beta, int chunks_x, int chunks_y,
+                                 const void* gr, void* V_row, void* V_col, int B, int H, int W,
+                                 int D, float alpha, float beta, int chunks_x, int chunks_y,
                                  int out_bf16, void* stream) {
-  if ((long long)H * W * D == 0) return 0;
+  if ((long long)B * H * W * D == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return out_bf16 ? launch<__nv_bfloat16>(iml, imr, gl, gr, V_row, V_col, H, W, D, alpha, beta,
-                                          chunks_x, chunks_y, s)
-                  : launch<float>(iml, imr, gl, gr, V_row, V_col, H, W, D, alpha, beta, chunks_x,
-                                  chunks_y, s);
+  return out_bf16 ? launch<__nv_bfloat16>(iml, imr, gl, gr, V_row, V_col, B, H, W, D, alpha,
+                                          beta, chunks_x, chunks_y, s)
+                  : launch<float>(iml, imr, gl, gr, V_row, V_col, B, H, W, D, alpha, beta,
+                                  chunks_x, chunks_y, s);
 }

@@ -8,7 +8,9 @@
   image's largest range.
 
 The fit is batched over initial guesses: X0 (G, 12) runs G independent fits
-in one LM loop (the reference vmaps them).
+in one LM loop (the reference vmaps them). Images are (..., H, W) ranges and
+(..., H, W, 3) illuminants: leading axes are a batch of images (cameras),
+and X0 (..., G, 12) gives each its own starts, all B x G fits one LM loop.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from .formation import beta_d_of_z, beta_guesses
 def _grid_samples(
     range_img: torch.Tensor, illuminant: torch.Tensor, num_px: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Uniform-grid sample of (z, E, valid), static shape (num_px, ...),
-    skipping a 5-px border."""
-    H, W = range_img.shape
+    """Uniform-grid sample of (z, E, valid), static shape (..., num_px, ...),
+    skipping a 5-px border; the same pixels of every image."""
+    *batch, H, W = range_img.shape
     dev = range_img.device
     px_per_row = max(1, int((4 * num_px) ** 0.5))
     stride_y = max(1, (H - 10) // px_per_row)
@@ -41,14 +43,14 @@ def _grid_samples(
         sel = torch.arange(num_px, device=dev) * (n // num_px)
         yy, xx = yy[sel], xx[sel]
         n = num_px
-    z = range_img[yy, xx]
-    E = illuminant[yy, xx]
+    z = range_img[..., yy, xx]
+    E = illuminant[..., yy, xx, :]
     valid = z > 1e-3
     if n < num_px:
         pad = num_px - n
-        z = torch.cat([z, z.new_zeros(pad)])
-        E = torch.cat([E, E.new_zeros((pad, 3))])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
+        z = torch.cat([z, z.new_zeros((*batch, pad))], dim=-1)
+        E = torch.cat([E, E.new_zeros((*batch, pad, 3))], dim=-2)
+        valid = torch.cat([valid, valid.new_zeros((*batch, pad))], dim=-1)
     return z, E, valid
 
 
@@ -77,15 +79,21 @@ def estimate_beta(
     iters: int = 20,
     X0: torch.Tensor | None = None,
 ) -> BetaFit:
-    """LM fit of beta_D from X0, which is (12,) or a batch (G, 12)."""
+    """LM fit of beta_D from X0, which is (12,), a batch of starts (G, 12),
+    or starts for each image (..., G, 12); the fit and its error have X0's
+    shape without the last axis."""
     if X0 is None:
         X0 = beta_guesses(range_img.device)[0]
+    single = X0.ndim == 1
     X0 = _clamp_beta(X0.float())
+    if single:
+        X0 = X0[None]
     z, E, valid = _grid_samples(range_img, illuminant, num_px)
-    w_valid = valid.float()
-    n_valid = w_valid.sum()
-    log_E = torch.log(torch.clamp_min(E, 1e-3))  # (N, 3)
-    zz = z[:, None]
+    # The samples broadcast over the starts: (..., 1, N) against (..., G, N).
+    w_valid = valid.float()[..., None, :]
+    n_valid = w_valid.sum(dim=-1)
+    log_E = torch.log(torch.clamp_min(E, 1e-3))[..., None, :, :]  # (..., 1, N, 3)
+    zz = z[..., None, :, None]
 
     def terms(X):
         X = X[..., None, :]  # broadcast the parameters over the samples
@@ -126,27 +134,33 @@ def estimate_beta(
         valid_count=n_valid,
         error_fn=error_fn,
     )
+    if single:
+        return BetaFit(result.x[..., 0, :], result.error[..., 0])
     return BetaFit(result.x, result.error)
 
 
 def estimate_beta_multi_start(
     range_img: torch.Tensor,
     illuminant: torch.Tensor,
-    guesses: torch.Tensor,  # (G, 12)
+    guesses: torch.Tensor,  # (G, 12) or (..., G, 12)
     num_px: int = 256,
     iters: int = 20,
 ) -> BetaFit:
-    """Fit from every guess (one batched LM run) and keep the lowest error."""
+    """Fit from every guess (one batched LM run) and keep, for each image,
+    the fit of lowest error."""
     fits = estimate_beta(range_img, illuminant, num_px=num_px, iters=iters, X0=guesses)
-    # A (1,) index tensor: a 0-d one would be read back to the host.
-    best = torch.argmin(fits.error).reshape(1)
-    return BetaFit(fits.X.index_select(0, best)[0], fits.error.index_select(0, best)[0])
+    # An index tensor: a 0-d one would be read back to the host.
+    best = torch.argmin(fits.error, dim=-1, keepdim=True)
+    return BetaFit(torch.take_along_dim(fits.X, best[..., None], dim=-2)[..., 0, :],
+                   torch.take_along_dim(fits.error, best, dim=-1)[..., 0])
 
 
 def correct_attenuation(image: torch.Tensor, range_img: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """J = D * exp(beta_D(z) * z); zero ranges -> the image's largest range.
-    The exponent is clamped at 60 so a diverged fit stays finite."""
-    zmax = range_img.amax()
+    X is (..., 12), one fit an image. The exponent is clamped at 60 so a
+    diverged fit stays finite."""
+    zmax = range_img.amax(dim=(-2, -1), keepdim=True)
     z = torch.where(range_img > 0.0, range_img, zmax)
+    X = X[..., None, None, :]  # over the image's pixels
     E = torch.exp(torch.clamp_max(beta_d_of_z(X, z) * z[..., None], 60.0))
     return image * E

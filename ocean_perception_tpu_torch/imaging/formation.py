@@ -46,7 +46,8 @@ def beta_guesses(device: torch.device) -> torch.Tensor:
 
 
 def beta_d_of_z(X: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """beta_D(z) per channel: X (12,) packed [a, b, c, d], z (...) -> (..., 3)."""
-    a, b, c, d = X[0:3], X[3:6], X[6:9], X[9:12]
+    """beta_D(z) per channel: X (..., 12) packed [a, b, c, d], broadcasting
+    against z (...) -> (..., 3)."""
+    a, b, c, d = X[..., 0:3], X[..., 3:6], X[..., 6:9], X[..., 9:12]
     zz = z[..., None]
     return a * torch.exp(b * zz) + c * torch.exp(d * zz)

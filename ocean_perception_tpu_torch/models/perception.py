@@ -8,6 +8,11 @@ planes, then upsamples (nearest) and doubles it. Both entry points run on
 the card unless the caller passes ``device="cpu"``: on a CUDA device the
 cost volume and the PatchMatch match run on the hand-written kernels in
 ``csrc/``, and so does the LK tracker; on the CPU their plain twins run.
+
+``perception_step`` also takes a batch of cameras, (B, H, W, 3) images, the
+counterpart of ``jax.vmap`` of the reference step: every kernel launch and
+every plain op carries all B cameras, so a batched call launches about as
+many kernels as one camera's call.
 """
 
 from __future__ import annotations
@@ -44,9 +49,9 @@ class PerceptionConfig:
 
 
 class PerceptionOutput(NamedTuple):
-    disparity: torch.Tensor      # (H, W) full-res left disparity, 0 = invalid
-    depth: torch.Tensor          # (H, W) meters, 0 = invalid/background
-    enhanced_left: torch.Tensor  # (H, W, 3) enhanced left RGB
+    disparity: torch.Tensor      # ([B,] H, W) full-res left disparity, 0 = invalid
+    depth: torch.Tensor          # ([B,] H, W) meters, 0 = invalid/background
+    enhanced_left: torch.Tensor  # ([B,] H, W, 3) enhanced left RGB
 
 
 def perception_step(
@@ -56,13 +61,19 @@ def perception_step(
     config: PerceptionConfig = PerceptionConfig(),
     device: torch.device | str = "cuda",
 ) -> PerceptionOutput:
-    """One frame through the dense-vision stack, on ``device``."""
+    """One frame through the dense-vision stack, on ``device``: (H, W, 3)
+    images, or (B, H, W, 3) for one frame of each of B cameras, with
+    outputs of the same leading axis."""
     if config.engine not in ("patchmatch", "sgm", "wta"):
         raise ValueError(f"unknown stereo engine {config.engine!r}")
     device = entry_device(device)
     left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
     right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
-    H, W = left_rgb.shape[0], left_rgb.shape[1]
+    if left_rgb.ndim not in (3, 4) or left_rgb.shape[-1] != 3 \
+            or right_rgb.shape != left_rgb.shape:
+        raise ValueError(f"need two ([B,] H, W, 3) images of one shape, got "
+                         f"{tuple(left_rgb.shape)} and {tuple(right_rgb.shape)}")
+    H, W = left_rgb.shape[-3], left_rgb.shape[-2]
 
     gray_l = to_grayscale(left_rgb)
     gray_r = to_grayscale(right_rgb)

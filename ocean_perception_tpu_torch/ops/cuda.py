@@ -17,6 +17,9 @@ public functions that dispatch to them (``stereo/cost.py``,
 ``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
 volume in the two strip layouts; each has its own entry in
 :data:`LAUNCHES`, so a run shows which layout the match went through.
+
+The stereo wrappers take a batch: any leading axes in front of an image's
+(H, W) (cameras) go into the one launch, the camera an index of the grid.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -116,10 +120,10 @@ def build(verbose: bool = False) -> Path:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "opt_cost_volume": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
-    "opt_pm_match": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
-    "opt_build_volumes": [_P] * 6 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P],
-    "opt_pm_match_strip": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    "opt_cost_volume": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    "opt_pm_match": [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P],
+    "opt_build_volumes": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
+    "opt_pm_match_strip": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
 }
 
 
@@ -167,13 +171,30 @@ def _require(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def _check_size(*shape: int) -> None:
+    """A launch takes fewer than 2^31 volume elements (B*H*W*D)."""
+    if math.prod(shape) >= 2**31:
+        raise ValueError(f"volumes of {math.prod(shape)} elements are too large for 32-bit "
+                         f"indexing")
+
+
+def _images(tensors):
+    """(batch shape, B, H, W) of same-shaped (..., H, W) float32 images."""
+    shape = tuple(tensors[0][1].shape)
+    if len(shape) < 2:
+        raise ValueError(f"images must be (..., H, W), got {shape}")
+    for name, t in tensors:
+        _require(t, name, (torch.float32,), shape)
+    return shape[:-2], math.prod(shape[:-2]), shape[-2], shape[-1]
+
+
 def _volume_dims(C: torch.Tensor):
     _require(C, "C", (torch.float32, torch.bfloat16))
-    if C.ndim != 3:
-        raise ValueError(f"C must be (H, W, D), got {tuple(C.shape)}")
-    if C.numel() >= 2**31:
-        raise ValueError("volume too large for 32-bit pixel indexing")
-    return C.shape[0], C.shape[1], C.shape[2], int(C.dtype == torch.bfloat16)
+    if C.ndim < 3:
+        raise ValueError(f"C must be (..., H, W, D), got {tuple(C.shape)}")
+    _check_size(C.numel())
+    *batch, H, W, D = C.shape
+    return tuple(batch), math.prod(batch), H, W, D, int(C.dtype == torch.bfloat16)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -182,30 +203,31 @@ def _stream(t: torch.Tensor) -> int:
 
 def cost_volume(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float,
                 dtype: torch.dtype) -> torch.Tensor:
-    """(H, W, D) X-stencil cost volume (csrc/cost_volume.cu)."""
-    H, W = iml.shape
-    for name, t in (("iml", iml), ("imr", imr), ("gl", gl), ("gr", gr)):
-        _require(t, name, (torch.float32,), (H, W))
+    """(..., H, W, D) X-stencil cost volume of (..., H, W) images, one
+    launch (csrc/cost_volume.cu)."""
+    batch, B, H, W = _images((("iml", iml), ("imr", imr), ("gl", gl), ("gr", gr)))
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported volume dtype {dtype}")
-    out = torch.empty((H, W, max_disp), dtype=dtype, device=iml.device)
+    _check_size(B, H, W, max_disp)
+    out = torch.empty((*batch, H, W, max_disp), dtype=dtype, device=iml.device)
     with torch.cuda.device(iml.device):
         err = library().opt_cost_volume(
             iml.data_ptr(), imr.data_ptr(), gl.data_ptr(), gr.data_ptr(), out.data_ptr(),
-            H, W, max_disp, alpha, beta, int(dtype == torch.bfloat16), _stream(iml))
+            B, H, W, max_disp, alpha, beta, int(dtype == torch.bfloat16), _stream(iml))
     _check(err, "cost_volume")
     LAUNCHES["cost_volume"] += 1
     return out
 
 
-def _match_buffers(seed, noise, dtype):
-    """The match's two front buffers, (2, H, W) in float32 and in the
-    volume's dtype, and its (H, W) output."""
-    H, W = seed.shape
-    _require(seed, "seed", (torch.float32,))
+def _match_buffers(seed, noise, batch, H: int, W: int, dtype):
+    """The matches' two front buffers, (..., 2, H, W) in float32 and in the
+    volume's dtype, and their (..., H, W) output; checks the (..., H, W)
+    seeds and the one (H, W) noise image."""
+    _require(seed, "seed", (torch.float32,), (*batch, H, W))
     _require(noise, "noise", (torch.float32,), (H, W))
-    return (torch.empty((2, H, W), dtype=torch.float32, device=seed.device),
-            torch.empty((2, H, W), dtype=dtype, device=seed.device), torch.empty_like(seed))
+    return (torch.empty((*batch, 2, H, W), dtype=torch.float32, device=seed.device),
+            torch.empty((*batch, 2, H, W), dtype=dtype, device=seed.device),
+            torch.empty_like(seed))
 
 
 def _match_checks(iters: int, chunks_x: int, chunks_y: int, H: int, W: int) -> None:
@@ -217,21 +239,20 @@ def _match_checks(iters: int, chunks_x: int, chunks_y: int, H: int, W: int) -> N
 
 def pm_match(C, seed, noise, iters: int, noise_scale0: float, chunks_x: int, chunks_y: int,
              halo: int, patch_radius: int, improve_factor: float) -> torch.Tensor:
-    """The whole one-side PatchMatch match over the (H, W, D) volume C, one
-    launch: per iteration the noise and cost refresh and the passes R+ C+ R-
-    C- (row passes in chunks_x strips, column passes in chunks_y), then
-    MaskBackground. Returns the masked (H, W) disparity; see
+    """The whole one-side PatchMatch match over the (..., H, W, D) volumes C
+    from the (..., H, W) seeds, with one (H, W) noise image for all, in one
+    launch: per iteration the noise and cost refresh and the passes R+ C+
+    R- C- (row passes in chunks_x strips, column passes in chunks_y), then
+    MaskBackground. Returns the masked (..., H, W) disparities; see
     stereo/patchmatch.py::_match_plain."""
-    H, W, D, bf16 = _volume_dims(C)
-    if tuple(seed.shape) != (H, W):
-        raise ValueError(f"seed must have shape {(H, W)}, got {tuple(seed.shape)}")
+    batch, B, H, W, D, bf16 = _volume_dims(C)
     _match_checks(iters, chunks_x, chunks_y, H, W)
-    disp, cost, out = _match_buffers(seed, noise, C.dtype)
+    disp, cost, out = _match_buffers(seed, noise, batch, H, W, C.dtype)
     with torch.cuda.device(C.device):
         err = library().opt_pm_match(
             C.data_ptr(), seed.data_ptr(), noise.data_ptr(), disp.data_ptr(), cost.data_ptr(),
-            out.data_ptr(), H, W, D, chunks_x, chunks_y, halo, patch_radius, iters, noise_scale0,
-            improve_factor, bf16, _stream(C))
+            out.data_ptr(), B, H, W, D, chunks_x, chunks_y, halo, patch_radius, iters,
+            noise_scale0, improve_factor, bf16, _stream(C))
     _check(err, "pm_match")
     LAUNCHES["pm_match"] += 1
     return out
@@ -239,23 +260,23 @@ def pm_match(C, seed, noise, iters: int, noise_scale0: float, chunks_x: int, chu
 
 def build_volumes(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float, chunks_x: int,
                   chunks_y: int, dtype: torch.dtype):
-    """(V_row, V_col): the cost volume in both strip layouts
+    """(V_row, V_col): the cost volumes of (..., H, W) images in both strip
+    layouts, each with the leading axes in front, one launch
     (csrc/volume_build.cu); see stereo/cost.py for the layouts."""
-    H, W = iml.shape
-    for name, t in (("iml", iml), ("imr", imr), ("gl", gl), ("gr", gr)):
-        _require(t, name, (torch.float32,), (H, W))
+    batch, B, H, W = _images((("iml", iml), ("imr", imr), ("gl", gl), ("gr", gr)))
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported volume dtype {dtype}")
     if chunks_x < 1 or W % chunks_x or chunks_y < 1 or H % chunks_y:
         raise ValueError(f"{chunks_x} x {chunks_y} strips do not tile a {H}x{W} image")
-    if H * W * max_disp >= 2**31:
-        raise ValueError("volume too large for 32-bit pixel indexing")
-    V_row = torch.empty((W // chunks_x, chunks_x, max_disp, H), dtype=dtype, device=iml.device)
-    V_col = torch.empty((H // chunks_y, chunks_y, max_disp, W), dtype=dtype, device=iml.device)
+    _check_size(B, H, W, max_disp)
+    V_row = torch.empty((*batch, W // chunks_x, chunks_x, max_disp, H), dtype=dtype,
+                        device=iml.device)
+    V_col = torch.empty((*batch, H // chunks_y, chunks_y, max_disp, W), dtype=dtype,
+                        device=iml.device)
     with torch.cuda.device(iml.device):
         err = library().opt_build_volumes(
             iml.data_ptr(), imr.data_ptr(), gl.data_ptr(), gr.data_ptr(), V_row.data_ptr(),
-            V_col.data_ptr(), H, W, max_disp, alpha, beta, chunks_x, chunks_y,
+            V_col.data_ptr(), B, H, W, max_disp, alpha, beta, chunks_x, chunks_y,
             int(dtype == torch.bfloat16), _stream(iml))
     _check(err, "build_volumes")
     LAUNCHES["build_volumes"] += 1
@@ -265,30 +286,26 @@ def build_volumes(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float, ch
 def pm_match_strip(V_row, V_col, seed, noise, iters: int, noise_scale0: float, halo: int,
                    patch_radius: int, improve_factor: float) -> torch.Tensor:
     """pm_match over the strip layouts of stereo/cost.py: row passes read
-    V_row (chunk_x, chunks_x, D, H), column passes V_col (chunk_y, chunks_y,
-    D, W); the passes' strips are the layouts' strips."""
+    V_row (..., chunk_x, chunks_x, D, H), column passes V_col (...,
+    chunk_y, chunks_y, D, W); the passes' strips are the layouts' strips."""
     for name, t in (("V_row", V_row), ("V_col", V_col)):
         _require(t, name, (torch.float32, torch.bfloat16))
-        if t.ndim != 4:
-            raise ValueError(f"{name} must be a 4-d strip volume, got {tuple(t.shape)}")
-        if t.numel() >= 2**31:
-            raise ValueError("volume too large for 32-bit pixel indexing")
-    if seed.ndim != 2:
-        raise ValueError(f"seed must be (H, W), got {tuple(seed.shape)}")
-    H, W = seed.shape
-    chunk_x, chunks_x, D, h = V_row.shape
-    chunk_y, chunks_y, d, w = V_col.shape
-    if (h, w, d, V_col.dtype) != (H, W, D, V_row.dtype) or chunk_x * chunks_x != W \
+        if t.ndim < 4:
+            raise ValueError(f"{name} must be a strip volume, got {tuple(t.shape)}")
+        _check_size(t.numel())
+    *batch, chunk_x, chunks_x, D, H = V_row.shape
+    *batch_c, chunk_y, chunks_y, d, W = V_col.shape
+    if (batch_c, d, V_col.dtype) != (batch, D, V_row.dtype) or chunk_x * chunks_x != W \
             or chunk_y * chunks_y != H:
         raise ValueError(f"strip volumes {tuple(V_row.shape)} and {tuple(V_col.shape)} do not "
-                         f"fit {H}x{W} fronts in one dtype")
+                         f"hold one batch of {H}x{W} volumes in one dtype")
     _match_checks(iters, chunks_x, chunks_y, H, W)
-    disp, cost, out = _match_buffers(seed, noise, V_row.dtype)
+    disp, cost, out = _match_buffers(seed, noise, batch, H, W, V_row.dtype)
     with torch.cuda.device(V_row.device):
         err = library().opt_pm_match_strip(
             V_row.data_ptr(), V_col.data_ptr(), seed.data_ptr(), noise.data_ptr(),
-            disp.data_ptr(), cost.data_ptr(), out.data_ptr(), H, W, D, chunks_x, chunks_y, halo,
-            patch_radius, iters, noise_scale0, improve_factor,
+            disp.data_ptr(), cost.data_ptr(), out.data_ptr(), math.prod(batch), H, W, D,
+            chunks_x, chunks_y, halo, patch_radius, iters, noise_scale0, improve_factor,
             int(V_row.dtype == torch.bfloat16), _stream(V_row))
     _check(err, "pm_match_strip")
     LAUNCHES["pm_match_strip"] += 1

@@ -1,7 +1,10 @@
 """Dense image operations on float32 tensors (port of ``ocean_perception_tpu.ops.image``).
 
-Only the subset that ``perception_step`` and ``full_frontend_step`` run. Every function takes an
-(H, W) or (H, W, C) tensor on any device and works on that device.
+Only the subset that ``perception_step`` and ``full_frontend_step`` run, and the
+Gaussian blur. Every function works on the device of its input. An image is
+(..., H, W): leading axes are a batch of images, each filtered on its own.
+Where the reference filters an (H, W, C) colour image over its two leading
+axes, the port's caller moves C in front, (..., C, H, W), and back.
 
 Two numerical rules keep the port equal to the JAX reference:
 
@@ -86,11 +89,10 @@ def _reflect101_index(n: int, lo: int, hi: int, device: torch.device) -> torch.T
 
 
 def _pad_reflect101(image: torch.Tensor, ry: int, rx: int) -> torch.Tensor:
-    """OpenCV BORDER_REFLECT_101 padding of the two leading axes."""
-    H, W = image.shape[0], image.shape[1]
-    rows = _reflect101_index(H, ry, ry, image.device)
-    cols = _reflect101_index(W, rx, rx, image.device)
-    return image.index_select(0, rows).index_select(1, cols)
+    """OpenCV BORDER_REFLECT_101 padding of the H and W axes."""
+    rows = _reflect101_index(image.shape[-2], ry, ry, image.device)
+    cols = _reflect101_index(image.shape[-1], rx, rx, image.device)
+    return image.index_select(-2, rows).index_select(-1, cols)
 
 
 def _sep_conv2d(image: torch.Tensor, ky, kx) -> torch.Tensor:
@@ -100,14 +102,14 @@ def _sep_conv2d(image: torch.Tensor, ky, kx) -> torch.Tensor:
     kx = np.asarray(kx, dtype=np.float32).reshape(-1).tolist()
     ry, rx = len(ky) // 2, len(kx) // 2
     padded = _pad_reflect101(image, ry, rx)
-    H, W = image.shape[0], image.shape[1]
+    H, W = image.shape[-2], image.shape[-1]
     acc = None
     for i, w in enumerate(ky):
-        term = w * padded[i : i + H]
+        term = w * padded[..., i : i + H, :]
         acc = term if acc is None else acc + term
     out = None
     for j, w in enumerate(kx):
-        term = w * acc[:, j : j + W]
+        term = w * acc[..., j : j + W]
         out = term if out is None else out + term
     return out
 
@@ -148,11 +150,27 @@ def box_filter(image: torch.Tensor, radius: int, normalize: bool = True) -> torc
             kk = kk / kk.sum()
         return _sep_conv2d(image, kk, kk)
     padded = _pad_reflect101(image, radius, radius)
-    out = _box_sum_1d(padded, k, 0)
-    out = _box_sum_1d(out, k, 1)
+    out = _box_sum_1d(padded, k, -2)
+    out = _box_sum_1d(out, k, -1)
     if normalize:
         out = out * float(np.float32(1.0 / (k * k)))
     return out
+
+
+def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    """Normalized Gaussian taps at -radius .. radius, float32."""
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(image: torch.Tensor, sigma: float, radius: int | None = None) -> torch.Tensor:
+    """Separable Gaussian blur, radius round(3 sigma) (at least 1) unless
+    given, reflect-101 borders; shifted adds in float32."""
+    if radius is None:
+        radius = max(1, int(round(3.0 * sigma)))
+    k = gaussian_kernel1d(sigma, radius)
+    return _sep_conv2d(image, k, k)
 
 
 def _window_reduce(image: torch.Tensor, k: int, axis: int, largest: bool) -> torch.Tensor:
@@ -166,12 +184,12 @@ def _window_reduce(image: torch.Tensor, k: int, axis: int, largest: bool) -> tor
 
 def dilate(image: torch.Tensor, ksize: int) -> torch.Tensor:
     """Grayscale dilation with a square element (cv::dilate), separable."""
-    return _window_reduce(_window_reduce(image, ksize, 0, True), ksize, 1, True)
+    return _window_reduce(_window_reduce(image, ksize, -2, True), ksize, -1, True)
 
 
 def erode(image: torch.Tensor, ksize: int) -> torch.Tensor:
     """Grayscale erosion with a square element (cv::erode), separable."""
-    return _window_reduce(_window_reduce(image, ksize, 0, False), ksize, 1, False)
+    return _window_reduce(_window_reduce(image, ksize, -2, False), ksize, -1, False)
 
 
 def morph_gradient(image: torch.Tensor, ksize: int) -> torch.Tensor:
@@ -182,18 +200,18 @@ def morph_gradient(image: torch.Tensor, ksize: int) -> torch.Tensor:
 
 def pyr_down(image: torch.Tensor) -> torch.Tensor:
     """cv::pyrDown: 5-tap Gaussian blur, then 2x decimation, reflect-101."""
-    H, W = image.shape[0], image.shape[1]
+    H, W = image.shape[-2], image.shape[-1]
     padded = _pad_reflect101(image, 2, 0)
     acc = None
     for i, w in enumerate(_PYR_K):
-        term = w * padded[i : i + H]
+        term = w * padded[..., i : i + H, :]
         acc = term if acc is None else acc + term
-    acc = acc[::2]
+    acc = acc[..., ::2, :]
     m = -(-W // 2)
     cols = _reflect101_index(W, 2, 2, image.device)
     out = None
     for k, w in enumerate(_PYR_K):
-        term = w * acc.index_select(1, cols[k : k + 2 * m : 2])
+        term = w * acc.index_select(-1, cols[k : k + 2 * m : 2])
         out = term if out is None else out + term
     return out
 
@@ -267,15 +285,16 @@ def _resize_axis(image: torch.Tensor, n: int, axis: int, method: str) -> torch.T
 
 
 def resize(image: torch.Tensor, shape: Sequence[int], method: str = "linear") -> torch.Tensor:
-    """Resize the two leading axes to ``shape`` with half-pixel-centre
+    """Resize the H and W axes to ``shape`` with half-pixel-centre
     sampling (``jax.image.resize`` semantics: ``nearest`` is torch's
     ``nearest-exact``; ``linear`` antialiases when downsampling)."""
-    out = _resize_axis(image, shape[0], 0, method)
-    return _resize_axis(out, shape[1], 1, method)
+    out = _resize_axis(image, shape[0], -2, method)
+    return _resize_axis(out, shape[1], -1, method)
 
 
 def to_grayscale(image: torch.Tensor) -> torch.Tensor:
-    """RGB -> luma (BT.601), summed as XLA's CPU dot sums it."""
+    """RGB (..., 3) -> luma (BT.601), summed as XLA's CPU dot sums it; a 2-D
+    image is taken as gray already."""
     if image.ndim == 2:
         return image
     r, g, b = image[..., 0], image[..., 1], image[..., 2]

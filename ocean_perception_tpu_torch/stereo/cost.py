@@ -1,6 +1,8 @@
 """Matching-cost volume over integer disparities (port of ``ocean_perception_tpu.stereo.cost``).
 
-Layout: (H, W, D), disparity-minor, as in the reference. On CUDA tensors
+Layout: (H, W, D), disparity-minor, as in the reference. Images are
+(..., H, W) and volumes (..., H, W, D): leading axes are a batch of stereo
+pairs (cameras), each with its own volume, in the same launches. On CUDA tensors
 :func:`cost_volume` launches the hand-written kernel in
 ``csrc/cost_volume.cu``; on CPU tensors it runs :func:`cost_volume_plain`,
 which defines the kernel's result bit for bit.
@@ -11,6 +13,8 @@ strip layouts the strip-volume PatchMatch reads (kernel ``build_volumes``,
 
     V_row[i, c, d, h] = C[h, c*chunk_x + i, d]   (chunk_x, chunks_x, D, H)
     V_col[i, c, d, w] = C[c*chunk_y + i, w, d]   (chunk_y, chunks_y, D, W)
+
+each with the batch's leading axes in front.
 """
 
 from __future__ import annotations
@@ -30,22 +34,22 @@ def _shift_right_image(im: torch.Tensor, d: int) -> torch.Tensor:
     """R(y, x-d), columns x < d clamped to column 0."""
     if d == 0:
         return im
-    W = im.shape[1]
+    W = im.shape[-1]
     idx = (torch.arange(W, device=im.device) - d).clamp_min(0)
-    return im.index_select(1, idx)
+    return im.index_select(-1, idx)
 
 
 def _stencil_sum(e: torch.Tensor) -> torch.Tensor:
     """5-tap X-stencil sum with edge-clamped neighbours, in STENCIL order."""
-    H, W = e.shape
+    H, W = e.shape[-2:]
     rows = torch.arange(-1, H + 1, device=e.device).clamp(0, H - 1)
     cols = torch.arange(-1, W + 1, device=e.device).clamp(0, W - 1)
-    padded = e.index_select(0, rows).index_select(1, cols)
+    padded = e.index_select(-2, rows).index_select(-1, cols)
     acc = e
     for dy, dx in STENCIL:
         if dy == 0 and dx == 0:
             continue
-        acc = acc + padded[1 + dy : 1 + dy + H, 1 + dx : 1 + dx + W]
+        acc = acc + padded[..., 1 + dy : 1 + dy + H, 1 + dx : 1 + dx + W]
     return acc
 
 
@@ -73,7 +77,7 @@ def cost_volume_plain(iml, imr, max_disp: int, alpha: float, gl, gr,
 
 def cost_volume(iml, imr, max_disp: int, alpha: float = 0.9, gl=None, gr=None,
                 dtype=torch.float32) -> torch.Tensor:
-    """(H, W, D) cost volume, D = max_disp, reference X-stencil cost."""
+    """(..., H, W, D) cost volume, D = max_disp, reference X-stencil cost."""
     iml = iml.float()
     imr = imr.float()
     if gl is None:
@@ -88,7 +92,7 @@ def cost_volume(iml, imr, max_disp: int, alpha: float = 0.9, gl=None, gr=None,
 
 
 def cost_volume_zncc(iml, imr, max_disp: int, patch_size: int = 5) -> torch.Tensor:
-    """(H, W, D) volume with cost = 1 - ZNCC over a patch_size box (the
+    """(..., H, W, D) volume with cost = 1 - ZNCC over a patch_size box (the
     reference CPU PatchMatch's test functor), from box-filtered means,
     variances and shifted cross-correlations."""
     iml = iml.float()
@@ -112,9 +116,9 @@ def right_cost_volume_from_left(C: torch.Tensor) -> torch.Tensor:
     """The right image's volume from the left's: C_R[y, x, d] =
     C_L[y, min(x + d, W - 1), d] (columns past the right edge clamp to the
     last one)."""
-    H, W, D = C.shape
+    W, D = C.shape[-2:]
     col = torch.arange(W, device=C.device)[:, None] + torch.arange(D, device=C.device)[None, :]
-    return torch.gather(C, 1, col.clamp_max(W - 1).expand(H, W, D))
+    return torch.gather(C, -2, col.clamp_max(W - 1).expand(C.shape))
 
 
 def _effective_chunks(n: int, chunks: int) -> int:
@@ -144,29 +148,30 @@ def strip_geometry(H: int, W: int, D: int, chunks: int, chunks_y: Optional[int])
 
 
 def strips_from_volume(C: torch.Tensor, g: StripGeometry):
-    """(V_row, V_col) of an (H, W, D) volume, both contiguous."""
-    H, W, D = C.shape
-    V_row = C.permute(1, 2, 0).reshape(g.chunks_x, g.chunk_x, D, H).transpose(0, 1)
-    V_col = C.permute(0, 2, 1).reshape(g.chunks_y, g.chunk_y, D, W).transpose(0, 1)
+    """(V_row, V_col) of an (..., H, W, D) volume, both contiguous."""
+    *batch, H, W, D = C.shape
+    V_row = C.movedim(-3, -1).reshape(*batch, g.chunks_x, g.chunk_x, D, H).transpose(-4, -3)
+    V_col = C.transpose(-2, -1).reshape(*batch, g.chunks_y, g.chunk_y, D, W).transpose(-4, -3)
     return V_row.contiguous(), V_col.contiguous()
 
 
 def volume_from_row_strips(V_row: torch.Tensor) -> torch.Tensor:
-    """The (H, W, D) volume held in V_row."""
-    chunk, chunks, D, H = V_row.shape
-    return V_row.transpose(0, 1).reshape(chunks * chunk, D, H).permute(2, 0, 1).contiguous()
+    """The (..., H, W, D) volume held in V_row."""
+    *batch, chunk, chunks, D, H = V_row.shape
+    C = V_row.transpose(-4, -3).reshape(*batch, chunks * chunk, D, H)
+    return C.movedim(-1, -3).contiguous()
 
 
 def volume_from_col_strips(V_col: torch.Tensor) -> torch.Tensor:
-    """The (H, W, D) volume held in V_col: one permute."""
-    chunk, chunks, D, W = V_col.shape
-    return V_col.permute(1, 0, 3, 2).reshape(chunks * chunk, W, D)
+    """The (..., H, W, D) volume held in V_col: one permute."""
+    *batch, chunk, chunks, D, W = V_col.shape
+    return V_col.transpose(-4, -3).transpose(-2, -1).reshape(*batch, chunks * chunk, W, D)
 
 
 def build_strip_volumes_plain(iml, imr, gl, gr, D: int, alpha: float, chunks: int,
                               chunks_y: Optional[int], dtype=torch.float32):
     """Plain twin of ``build_volumes``: the volume, then both relayouts."""
-    g = strip_geometry(iml.shape[0], iml.shape[1], D, chunks, chunks_y)
+    g = strip_geometry(iml.shape[-2], iml.shape[-1], D, chunks, chunks_y)
     return strips_from_volume(cost_volume_plain(iml, imr, D, alpha, gl, gr, dtype), g)
 
 
@@ -176,7 +181,7 @@ def build_strip_volumes(iml, imr, gl, gr, D: int, alpha: float, chunks: int,
     strip layouts (kernel ``build_volumes`` on CUDA tensors)."""
     iml, imr, gl, gr = (t.float() for t in (iml, imr, gl, gr))
     if iml.is_cuda:
-        g = strip_geometry(iml.shape[0], iml.shape[1], D, chunks, chunks_y)
+        g = strip_geometry(iml.shape[-2], iml.shape[-1], D, chunks, chunks_y)
         a, b = _alpha_beta(alpha)
         return cuda.build_volumes(iml.contiguous(), imr.contiguous(), gl.contiguous(),
                                   gr.contiguous(), D, a, b, g.chunks_x, g.chunks_y, dtype)
@@ -184,7 +189,7 @@ def build_strip_volumes(iml, imr, gl, gr, D: int, alpha: float, chunks: int,
 
 
 def cost_of_disparity(C: torch.Tensor, disp_int: torch.Tensor) -> torch.Tensor:
-    """Cost at a given integer disparity per pixel: (H, W) lookup into (H, W, D)."""
+    """Cost at a given integer disparity per pixel: (..., H, W) lookup into (..., H, W, D)."""
     return torch.gather(C, -1, disp_int.long().unsqueeze(-1)).squeeze(-1)
 
 
@@ -193,10 +198,10 @@ def sample_at_disparity(values: torch.Tensor, disp_int: torch.Tensor, max_disp: 
 
     ``disp_int`` must lie in [0, max_disp); the reference's one-hot over
     max_disp shifts selects exactly one term, so a gather equals it."""
-    W = values.shape[1]
-    col = torch.arange(W, device=values.device)[None, :]
+    W = values.shape[-1]
+    col = torch.arange(W, device=values.device)
     src = (col - disp_int.long()).clamp_min(0)
-    return torch.gather(values, 1, src)
+    return torch.gather(values, -1, src)
 
 
 def subpixel_refine(C: torch.Tensor, disp_int: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ The kernel reads the volume in one of two layouts. The (H, W, D) volume of
 layouts of :func:`~.cost.build_strip_volumes` (``pm_match_strip``): row
 passes read ``V_row`` and column passes ``V_col``. Both give the same
 disparities bit for bit.
+
+Every function takes a batch: images (..., H, W) and volumes (..., H, W, D),
+the leading axes a batch of stereo pairs (cameras), each matched on its own
+and all in one kernel launch. The noise image is one (H, W) image for every
+pair, as the reference's fixed-key noise is under ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -110,8 +115,8 @@ def _lookup_index(d_eff: torch.Tensor, D: int) -> torch.Tensor:
 
 
 def _full_cost_map(C: torch.Tensor, disp: torch.Tensor, pr: int) -> torch.Tensor:
-    """(H, W) cost of each pixel's current disparity, clamped to x - pr."""
-    W, D = C.shape[1], C.shape[2]
+    """(..., H, W) cost of each pixel's current disparity, clamped to x - pr."""
+    W, D = C.shape[-2], C.shape[-1]
     x = torch.arange(W, dtype=disp.dtype, device=disp.device)[None, :]
     idx = _lookup_index(torch.minimum(disp, x - pr), D)
     return torch.gather(C, -1, idx.unsqueeze(-1)).squeeze(-1)
@@ -153,39 +158,44 @@ def _strips(p: PatchMatchParams, axis: int) -> int:
 def _propagate_plain(C, disp, cost, direction: int, axis: int, p: PatchMatchParams):
     """One directional pass over all strips (a pass of ``pm_match``).
 
-    Scan position by position (all strips and lanes at once). Every step
-    reads the pass-start disparity and cost of its position and only each
-    strip's own chunk is written back (the JAX scan's snapshot semantics)."""
-    H, W, D = C.shape
+    Scan position by position (all pairs, strips and lanes at once). Every
+    step reads the pass-start disparity and cost of its position and only
+    each strip's own chunk is written back (the JAX scan's snapshot
+    semantics)."""
+    batch = disp.shape[:-2]
+    C = C.reshape(-1, *C.shape[-3:])  # one batch axis, a view
+    B, H, W, D = C.shape
+    disp, cost = disp.reshape(B, H, W), cost.reshape(B, H, W)
     pr, halo = p.patch_radius, p.halo
     if axis == 1:  # rows pass: positions along x, lanes are rows
         dim, N = W, H
-        vals_d, vals_c, vol = disp.t(), cost.t(), C.transpose(0, 1)
+        vals_d, vals_c, vol = disp.transpose(1, 2), cost.transpose(1, 2), C.transpose(1, 2)
     else:
         dim, N = H, W
         vals_d, vals_c, vol = disp, cost, C
     pos, valid, chunk, w = _chunk_columns(dim, _strips(p, axis), halo, pr, C.device)
+    cams = torch.arange(B, device=C.device)[:, None, None]
     lanes = torch.arange(N, device=C.device)
-    lane_ok = ((lanes >= pr) & (lanes <= N - pr - 1))[None, :]
+    lane_ok = (lanes >= pr) & (lanes <= N - pr - 1)
     forward = direction > 0
     first = pos[:, 0 if forward else -1]
-    carry = vals_d[(first - direction).clamp(0, dim - 1)]
+    carry = vals_d[:, (first - direction).clamp(0, dim - 1)]  # (B, strips, N)
     out_d = torch.empty_like(vals_d)
     out_c = torch.empty_like(vals_c)
     for j in range(w) if forward else range(w - 1, -1, -1):
         pj = pos[:, j]
-        cur_d, cur_c = vals_d[pj], vals_c[pj]
-        x = (pj[:, None] if axis == 1 else lanes[None, :]).to(disp.dtype)
+        cur_d, cur_c = vals_d[:, pj], vals_c[:, pj]
+        x = (pj[:, None] if axis == 1 else lanes).to(disp.dtype)
         cand_d = torch.minimum(carry, x - pr)
-        cand_c = vol[pj[:, None], lanes[None, :], _lookup_index(cand_d, D)]
+        cand_c = vol[cams, pj[:, None], lanes, _lookup_index(cand_d, D)]
         better = (cand_c.float() < cur_c.float()) & valid[:, j, None] & lane_ok
         carry = torch.where(better, cand_d, cur_d)
         if halo <= j < halo + chunk:
-            out_d[pj] = carry
-            out_c[pj] = torch.where(better, cand_c, cur_c)
+            out_d[:, pj] = carry
+            out_c[:, pj] = torch.where(better, cand_c, cur_c)
     if axis == 1:
-        return out_d.t().contiguous(), out_c.t().contiguous()
-    return out_d, out_c
+        out_d, out_c = out_d.transpose(1, 2), out_c.transpose(1, 2)
+    return out_d.reshape(*batch, H, W).contiguous(), out_c.reshape(*batch, H, W).contiguous()
 
 
 def _propagate_strip_plain(V, disp, cost, direction: int, axis: int, p: PatchMatchParams):
@@ -201,7 +211,7 @@ def _mask_with_cost(C: torch.Tensor, disp: torch.Tensor, cost_d: torch.Tensor,
     zero the disparity unless it improves cost by improve_factor vs d=0, and
     on the 1-px frame. The threshold is a float32 product, as in the
     reference."""
-    H, W = disp.shape
+    H, W = disp.shape[-2:]
     pr = p.patch_radius
     keep = cost_d.float() < p.improve_factor * C[..., 0].float()
     yy = torch.arange(H, device=disp.device)[:, None]
@@ -291,9 +301,10 @@ def _match_plain(C_row, C_col, seed, noise, p: PatchMatchParams) -> torch.Tensor
 
 
 def _match_one_side(C, seed, noise, p: PatchMatchParams) -> torch.Tensor:
-    """One side's match (kernel ``pm_match``)."""
+    """One side's match (kernel ``pm_match``): C (..., H, W, D), seed
+    (..., H, W), one (H, W) noise image for all."""
     if C.is_cuda:
-        H, W = C.shape[:2]
+        H, W = C.shape[-3:-1]
         return cuda.pm_match(C, seed.float().contiguous(), noise, p.iters, p.noise_scale0,
                              _effective_chunks(W, p.chunks), _effective_chunks(H, _strips(p, 0)),
                              p.halo, p.patch_radius, p.improve_factor)
@@ -346,7 +357,7 @@ def patchmatch_disparity(
         else:
             C_l = cost_volume(iml, imr, p.max_disp, p.alpha, gl, gr, dtype=vdtype)
 
-    noise = unit_noise(iml.shape, p.noise_seed, device=iml.device)
+    noise = unit_noise(iml.shape[-2:], p.noise_seed, device=iml.device)
     if seed_left is None:
         seed_left = sparse_wta_seed(C_l, p)
     if p.right_wta:

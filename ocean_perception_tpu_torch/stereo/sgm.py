@@ -8,8 +8,9 @@ The SGM recurrence along a path direction r:
 
 Each directional pass walks its axis step by step (a Python loop, the JAX
 scan) with the whole front of every strip advancing at once; 4 directions
-are summed. Both sides aggregate as one leading batch of 2 (JAX's vmap).
-Plain PyTorch: the JAX package has no TPU kernel here.
+are summed. Both sides of every stereo pair of a batch (images (..., H, W))
+aggregate as one leading batch (JAX's vmap), so the recurrence's steps run
+once for all of them. Plain PyTorch: the JAX package has no TPU kernel here.
 """
 
 from __future__ import annotations
@@ -122,7 +123,8 @@ def sgm_disparity(iml: torch.Tensor, imr: torch.Tensor,
     The right side aggregates the right volume derived from the left."""
     C_l = cost_volume(iml.float(), imr.float(), params.max_disp, params.alpha)
     C_r = right_cost_volume_from_left(C_l)
-    S = sgm_aggregate(torch.stack([C_l, C_r]), params)
+    sides = torch.stack([C_l, C_r])
+    S = sgm_aggregate(sides.reshape(-1, *C_l.shape[-3:]), params).reshape(sides.shape)
     d = _wta_with_masks(S, params)
     if params.subpixel:
         disp_l, disp_r = subpixel_refine(S[0], d[0]), subpixel_refine(S[1], d[1])

@@ -10,7 +10,8 @@ entry points ``opt_pm_refresh``, ``opt_pm_propagate``,
 there with ``git show <commit>:ocean_perception_tpu_torch/csrc/patchmatch.cu``;
 skipped when absent); each ``--compare NAME=FILE``, another version of
 ``patchmatch.cu`` with this checkout's entry points ``opt_pm_match`` and
-``opt_pm_match_strip``; this checkout's source, one cooperative launch a
+``opt_pm_match_strip`` (with or without the batch size, ``turns.py``);
+this checkout's source, one cooperative launch a
 match; and each entry of ``VARIANTS``, this source with one constant
 replaced. Each build goes into ``ocean_perception_tpu_torch/_build/pm_turns/``
 (``turns.py``).
@@ -88,7 +89,7 @@ VARIANTS = {
 
 MAX_BLOCKS, MAX_PASSES = 1024, 64
 STAMP_START = "    if (ph > 0) cg::this_grid().sync();\n"
-STAMP_END = "      }\n    }\n  }\n}\n\ntemplate <typename T, typename RowVol, typename ColVol>\nint match("
+STAMP_END = "      }\n    }\n  }\n}\n\n// Blocks of kernel that can be resident"
 
 
 def stamped(text: str) -> str:
@@ -226,7 +227,9 @@ def main() -> int:
     else:
         print(f"[build] no {parent_cu}: the parent is not timed")
     for name, f in (c.split("=", 1) for c in args.compare):
-        builds[name] = turns.Build({"patchmatch.cu": Path(f).read_text()}, THIS_SIGNATURES)
+        text = Path(f).read_text()
+        builds[name] = turns.Build({"patchmatch.cu": text},
+                                   turns.signatures([text], THIS_SIGNATURES))
     builds["this"] = turns.Build({"patchmatch.cu": this}, THIS_SIGNATURES)
     for name, consts in VARIANTS.items():
         text = turns.edited(this, [(re.search(rf"constexpr int {c} = \d+;", this).group(0),
@@ -235,7 +238,8 @@ def main() -> int:
         builds[name] = turns.Build({"patchmatch.cu": text}, THIS_SIGNATURES)
     builds["stamped"] = turns.Build({"patchmatch.cu": stamped(this)},
                                     dict(THIS_SIGNATURES, opt_stamps=[_P]))
-    libs = turns.build_all("pm_turns", builds)
+    libs = {name: lib if name == "parent" else turns.loaded(lib, builds[name].files.values())
+            for name, lib in turns.build_all("pm_turns", builds).items()}
     stamps = libs.pop("stamped")
 
     left, right = (torch.as_tensor(a, device=dev) for a in cs.make_inputs(cs.make_canvas()))

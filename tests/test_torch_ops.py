@@ -111,7 +111,8 @@ def test_box_filter_matches_jax(radius):
 def test_box_filter_three_channels():
     x = _img(6, (24, 40, 3))
     for radius in (3, 12):
-        np.testing.assert_allclose(timg.box_filter(torch.from_numpy(x), radius).numpy(),
+        got = timg.box_filter(torch.from_numpy(x).movedim(-1, 0), radius).movedim(0, -1)
+        np.testing.assert_allclose(got.numpy(),
                                    _jax(lambda v: jimg.box_filter(v, radius), x), atol=F32_TOL)
 
 

@@ -485,3 +485,136 @@ def test_cost_kernels_on_ragged_shapes(cuda_device, dtype, H, W, D):
     for a, b in zip(ours, tcost.strips_from_volume(plain, g)):
         assert a.shape == b.shape and torch.equal(a, b)
     torch.cuda.synchronize()
+
+
+# --- a batch of cameras on the card ----------------------------------------
+
+
+def _batched_inputs(device, B=3, H=40, W=64, D=16):
+    """B stereo pairs of different scenes and true disparities, (B, H, W)."""
+    ls, rs = [], []
+    for b in range(B):
+        canvas = np.random.default_rng(60 + b).random((H, W + 8)).astype(np.float32)
+        ls.append(canvas[:, 8:])
+        rs.append(canvas[:, 8 - (2 + b): 8 - (2 + b) + W])
+    return (torch.from_numpy(np.stack(ls)).to(device), torch.from_numpy(np.stack(rs)).to(device),
+            D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batched_kernels_match_batched_twins(cuda_device, dtype):
+    """K1, K4, pm_match and pm_match_strip on 3 cameras, each one launch,
+    against their twins on the same batch (bit for bit) and, camera by
+    camera, against their one-camera launches; the match on the path's
+    seeds and on adversarial ones."""
+    l, r, D = _batched_inputs(cuda_device)
+    gl, gr = gradient_magnitude(l), gradient_magnitude(r)
+    p = tpm.PatchMatchParams(max_disp=D, chunks=4, chunks_y=3, iters=2)
+    cuda.reset_launches()
+    C = tcost.cost_volume(l, r, D, 0.9, gl, gr, dtype=dtype)
+    vr, vc = tcost.build_strip_volumes(l, r, gl, gr, D, 0.9, p.chunks, p.chunks_y, dtype)
+    assert cuda.LAUNCHES["cost_volume"] == cuda.LAUNCHES["build_volumes"] == 1
+    assert torch.equal(C, tcost.cost_volume_plain(l, r, D, 0.9, gl, gr, dtype))
+    for got, want in zip((vr, vc), tcost.build_strip_volumes_plain(l, r, gl, gr, D, 0.9, p.chunks,
+                                                                   p.chunks_y, dtype)):
+        assert got.shape[0] == 3 and torch.equal(got, want)
+    noise = tpm.unit_noise(l.shape[-2:], p.noise_seed, device=cuda_device)
+    adversarial = [_adversarial_seed(C[b], seed=5 + b) for b in range(3)]
+    seeds = {"path": tpm.sparse_wta_seed(C, p),
+             "adversarial": torch.stack([s for s, _ in adversarial])}
+    C_row = tcost.volume_from_row_strips(vr)
+    for tag, seed in seeds.items():
+        cuda.reset_launches()
+        got = tpm._match_one_side(C, seed, noise, p)
+        got_s = tpm._match_one_side_strips(vr, vc, seed, noise, p)
+        assert cuda.LAUNCHES["pm_match"] == cuda.LAUNCHES["pm_match_strip"] == 1, tag
+        want = tpm._match_plain(C, C, seed, noise, p)
+        assert torch.equal(got, want) and torch.equal(got_s, want), tag
+        assert torch.equal(tpm._match_plain(C_row, C, seed, noise, p), want)
+        for b in range(3):
+            assert torch.equal(got[b], tpm._match_one_side(C[b], seed[b], noise, p)), (tag, b)
+            assert torch.equal(got_s[b], tpm._match_one_side_strips(vr[b], vc[b], seed[b], noise,
+                                                                     p)), (tag, b)
+        assert 0 < (got > 0).float().mean() < 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strips", [False, True])
+def test_batched_perception_step_on_the_card(cuda_device, strips):
+    """perception_step on 3 cameras of different scenes: each kernel of its
+    path launches once a call, each camera's disparity and depth equal its
+    one-camera step's bit for bit, no host sync, and the CPU agrees."""
+    from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
+    from ocean_perception_tpu_torch.models.perception import PerceptionConfig, perception_step
+
+    H, W = 64, 96
+    ls, rs = [], []
+    for b in range(3):
+        canvas = np.random.default_rng(70 + b).random((H, W + 16)).astype(np.float32)
+        ls.append(np.repeat(canvas[:, 16:, None], 3, 2))
+        rs.append(np.repeat(canvas[:, 16 - 6 - 2 * b: 16 - 6 - 2 * b + W, None], 3, 2))
+    left = torch.from_numpy(np.stack(ls)).to(cuda_device)
+    right = torch.from_numpy(np.stack(rs)).to(cuda_device)
+    cam = PinholeCamera.create(100.0, 100.0, W / 2, H / 2, H, W)
+    rig = StereoCamera.create(cam, cam, 0.1)
+    config = PerceptionConfig(max_disp=32, internal_scale=2, chunks=4, use_strip_volumes=strips)
+    perception_step(left, right, rig, config, device=cuda_device)  # puts the constants there
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out = perception_step(left, right, rig, config, device=cuda_device)
+    want = {"build_volumes": 1, "pm_match_strip": 1} if strips else {"cost_volume": 1,
+                                                                     "pm_match": 1}
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == want
+    assert out.disparity.shape == (3, H, W) and out.enhanced_left.shape == (3, H, W, 3)
+    for b in range(3):
+        one = perception_step(left[b], right[b], rig, config, device=cuda_device)
+        assert torch.equal(out.disparity[b], one.disparity)
+        assert torch.equal(out.depth[b], one.depth)
+    cpu = perception_step(left.cpu(), right.cpu(), rig, config, device="cpu")
+    assert ((out.disparity.cpu() - cpu.disparity).abs() <= 1e-3).float().mean() >= 0.99
+    assert sync_sites(lambda: perception_step(left, right, rig, config, device=cuda_device)) == []
+
+
+@pytest.mark.gpu
+def test_enhance_sequence_keeps_its_guess_on_the_card(cuda_device):
+    """EnhanceSequence's frames make no host sync: the carried beta_D guess
+    is chosen on the card; one camera and a batch of two."""
+    from ocean_perception_tpu_torch.imaging.enhance import EnhanceSequence
+
+    rng = np.random.default_rng(46)
+    image = torch.from_numpy(rng.uniform(0.05, 0.9, (2, 48, 64, 3)).astype(np.float32))
+    z = torch.from_numpy(rng.uniform(1.0, 4.0, (2, 48, 64)).astype(np.float32))
+    for frame, ranges in ((image[0], z[0]), (image, z)):
+        seq = EnhanceSequence(device=cuda_device)
+        frame, ranges = frame.to(cuda_device), ranges.to(cuda_device)
+        seq(frame, ranges)  # puts the constants there
+        torch.cuda.synchronize()
+        assert sync_sites(lambda: seq(frame, ranges)) == []
+        assert seq.guess.device.type == "cuda" and seq.guess.shape == frame.shape[:-3] + (12,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine,extra", [("patchmatch", dict(right_wta=False)),
+                                          ("patchmatch", dict(right_wta=True, cost="zncc")),
+                                          ("sgm", {}), ("wta", {})])
+def test_batched_engines_on_the_card(cuda_device, engine, extra):
+    """The other stereo configurations on 3 cameras: the kernels launch
+    once a call (the two-sided match once a side), each camera's left map
+    equals its one-camera call's on the card, and the CPU agrees."""
+    from ocean_perception_tpu_torch.stereo import api as tapi
+
+    l, r, D = _batched_inputs(cuda_device)
+    kw = dict(engine=engine, max_disp=D,
+              patchmatch_params=tpm.PatchMatchParams(max_disp=D, chunks=4, **extra))
+    cuda.reset_launches()
+    got = tapi.estimate_disparity(l, r, **kw)
+    want = {"cost_volume": 1} if extra.get("cost") != "zncc" else {}
+    if engine == "patchmatch":
+        want["pm_match"] = 2 if not extra["right_wta"] else 1
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == want
+    for b in range(3):
+        assert torch.equal(got.left[b], tapi.estimate_disparity(l[b], r[b], **kw).left), b
+    cpu = tapi.estimate_disparity(l.cpu(), r.cpu(), **kw)
+    assert ((got.left.cpu() - cpu.left).abs() <= 1e-3).float().mean() >= 0.99

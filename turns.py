@@ -8,6 +8,10 @@ or more exact replacements (``edited``); a stamped build adds an array of
 timer stamps and an entry point that copies it to the host
 (``with_stamps``). Builds are timed in turns, in order and then in reverse
 (A B B A, ``turn_order``), so that the card's drift shows.
+
+The stereo entry points take a batch size B since the batched
+``perception_step``; a build of older sources, without it, is called
+through ``Unbatched`` with B = 1 (``signatures``, ``loaded``).
 """
 
 from __future__ import annotations
@@ -65,6 +69,62 @@ def build_all(script: str, builds: dict) -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return libs
+
+
+# Where each stereo entry point takes the batch size B: the int after its
+# pointers.
+BATCH_ARG = {"opt_cost_volume": 5, "opt_pm_match": 6, "opt_build_volumes": 6,
+             "opt_pm_match_strip": 7}
+
+
+def takes_batch(text: str, fn: str) -> bool:
+    """Whether the entry point fn, declared in text, takes the batch size."""
+    m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
+    if m is None:
+        raise RuntimeError(f"no entry point {fn} in the source")
+    return re.search(r"\bint B\b", m.group(1)) is not None
+
+
+def signatures(texts, names) -> dict:
+    """ctypes argument types of the entry points names, as the sources texts
+    declare them (with or without the batch size)."""
+    text = "\n".join(texts)
+    out = {}
+    for fn in names:
+        sig = list(cuda._SIGNATURES[fn])
+        if fn in BATCH_ARG and not takes_batch(text, fn):
+            del sig[BATCH_ARG[fn]]
+        out[fn] = sig
+    return out
+
+
+class Unbatched:
+    """A library whose stereo entry points predate the batch, called with
+    the batched wrappers' arguments: B, which must be 1, is dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in BATCH_ARG:
+            return fn
+        k = BATCH_ARG[name]
+
+        def call(*args):
+            if args[k] != 1:
+                raise ValueError(f"{name}: a build without the batch takes B = 1, got {args[k]}")
+            return fn(*args[:k], *args[k + 1:])
+        return call
+
+
+def loaded(lib, texts):
+    """lib as ops/cuda.py's wrappers call it: through Unbatched where its
+    sources texts predate the batch."""
+    text = "\n".join(texts)
+    if any(f'int {fn}(' in text and not takes_batch(text, fn) for fn in BATCH_ARG):
+        return Unbatched(lib)
+    return lib
 
 
 def edited(text: str, edits, what: str) -> str:
