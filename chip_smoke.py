@@ -34,7 +34,10 @@ disparity and motion, in phases:
    ``perception_step`` and two-sided and ZNCC PatchMatch (through
    ``estimate_disparity`` at the perception step's half resolution, then
    upsampled as the step does): ms/frame, accuracy, and one frame each
-   against the CPU;
+   against the CPU; then two-sided and ZNCC PatchMatch on N_CAMERAS
+   cameras in one call (``pm_match`` once a side a call), each camera's
+   disparity equal to its one-camera call's, ms a call beside the one
+   camera's ms/frame;
 9. the LK kernel ``lk_track`` (every level of one direction in one launch)
    against its twin on one ``full_frontend_step`` frame's recorded inputs at
    720p (K=200 slots, a 4-frame ring, 4 levels, window 21, forward and
@@ -68,7 +71,24 @@ disparity and motion, in phases:
    GPU, the CUDA kernels a call runs at one camera and at N_CAMERAS
    (``torch.profiler``, with the kernels whose count differs between the
    two, and the kernel nodes of the call captured in a CUDA graph), and the
-   peak device memory of each.
+   peak device memory of each;
+13. the fleet frontend, as a farm node dispatches it:
+   ``multi_camera_frontend_step`` on N_CAMERAS cameras of uint8 mono frames
+   at the farm point (``internal_scale=4``, ``mesher_scale=1``,
+   ``ObjectMesherDeviceParams()``), each camera its own phase of the moving
+   canvas (FLEET_PHASE frames apart): ``lk_track`` at B=N_CAMERAS against
+   its batched twin (bit-identical) with its times and bound beside the one
+   camera's (phase 9); 8 timed calls (launch counts, per-camera track error
+   and stripe disparities); each camera's disparity map, depth, labels,
+   slot ids and alive set equal to its one-camera ``full_frontend_step`` on
+   the card at every timed frame, its pixels within 1e-3 px on >= 99% of
+   alive slots (the run prints where they are equal bit for bit); no host
+   sync; the call replayed as one CUDA graph with its outputs fed back
+   (first and last frames equal to the call path's); ms a call by calls
+   and by graph, fps per GPU beside the one-camera frontend's graph frame
+   at the same point, CUDA kernels a call (profiler; graph nodes), peak
+   memory, and the call times of a call and of its dense and mesher
+   halves, at one camera and at N_CAMERAS.
 
 The enhanced image of a batched camera is held to the one-camera step's as
 the port's CPU tests hold it to the reference: the median and the 99.9th
@@ -124,6 +144,10 @@ from ocean_perception_tpu_torch.models.perception import (PerceptionConfig, full
 from ocean_perception_tpu_torch.ops import cuda
 from ocean_perception_tpu_torch.ops.image import (gradient_magnitude, image_pyramid, pyr_down,
                                                   resize, to_grayscale)
+from ocean_perception_tpu_torch.ops.windows import fold_rings
+from ocean_perception_tpu_torch.parallel.sharded_pipeline import (create_fleet_frontend_state,
+                                                                  multi_camera_frontend_step,
+                                                                  prepare_frames)
 from ocean_perception_tpu_torch.stereo import cost as sc
 from ocean_perception_tpu_torch.stereo import patchmatch as pm
 from ocean_perception_tpu_torch.stereo.api import estimate_disparity
@@ -144,7 +168,8 @@ FRONTEND_SYNCS = 0
 PER_FRAME = {"cost_volume": 1, "pm_match": 1}
 PER_STRIP_FRAME = {"build_volumes": 1, "pm_match_strip": 1}
 PER_FRONTEND_FRAME = dict(PER_FRAME, lk_track=2)  # forward and backward, 4 levels each
-N_CAMERAS = 4  # phase 12's batch
+N_CAMERAS = 4  # phase 8's, 12's and 13's batch
+FLEET_PHASE = 9  # phase 13: camera b's frame i is frame i + FLEET_PHASE * b of the sequence
 FARM_SCALE = 4  # the farm point's internal_scale
 SHIFT = 2  # frontend sequence: features move -SHIFT px a frame
 PM_CU = "ocean_perception_tpu_torch/csrc/patchmatch.cu"
@@ -227,6 +252,17 @@ def make_inputs(canvas: np.ndarray, i: int = 0) -> tuple[np.ndarray, np.ndarray]
     left_rgb = np.clip(left[..., None] * tint + 0.05, 0, 1).astype(np.float32)
     right_rgb = np.clip(right[..., None] * tint + 0.05, 0, 1).astype(np.float32)
     return left_rgb, right_rgb
+
+
+def make_mono_u8(canvas: np.ndarray, i: int) -> tuple[np.ndarray, np.ndarray]:
+    """Frame i of the sequence as a farm camera sends it, uint8 mono: the
+    canvas of make_inputs, scaled to [0.05, 0.95] and quantized."""
+    x0 = 100 + SHIFT * i
+
+    def u8(a):
+        return (np.clip(a * 0.9 + 0.05, 0, 1) * 255).astype(np.uint8)
+
+    return u8(canvas[:, x0 : x0 + W]), u8(canvas[:, x0 + TRUE_DISP : x0 + TRUE_DISP + W])
 
 
 def call_ms(fn, n: int = N_TIMED) -> float:
@@ -858,10 +894,11 @@ def dense_disparity(left_rgb, right_rgb, params: pm.PatchMatchParams, device) ->
     return resize(r.left, (H, W), method="nearest") * float(SCALE)
 
 
-def phase_engines(left_rgb, right_rgb, rig) -> dict:
+def phase_engines(left_rgb, right_rgb, rig, canvas) -> dict:
     """The other stereo configurations at 720p: N_ENGINE_FRAMES timed frames
     each after a warm-up, launch counts, accuracy, and one frame against
-    the CPU (within 1e-3 px on >= 99% of pixels)."""
+    the CPU (within 1e-3 px on >= 99% of pixels); then the two PatchMatch
+    configurations on N_CAMERAS cameras in one call (phase_engines_batched)."""
     D = MAX_DISP // SCALE
     engines = {
         "sgm": (lambda l, r, dev: perception_step(l, r, rig, PerceptionConfig(
@@ -911,7 +948,53 @@ def phase_engines(left_rgb, right_rgb, rig) -> dict:
             raise AssertionError(f"{name}: valid fraction {frac}")
         if close < 0.99:
             raise AssertionError(f"{name}: card and CPU disparities disagree")
+    phase_engines_batched({k: engines[k] for k in engines if k.startswith("patchmatch")},
+                          canvas, results, dev)
     return results
+
+
+def phase_engines_batched(engines: dict, canvas, results: dict, dev) -> None:
+    """Each engine's dense half on N_CAMERAS cameras in one call, each its
+    own frame of the sequence: N_ENGINE_FRAMES timed calls after a warm-up,
+    each kernel launched as often a call as a one-camera frame launches it
+    (the two-sided match once a side), and each camera's disparity equal to
+    its one-camera call's bit for bit."""
+    B = N_CAMERAS
+    pairs = [make_inputs(canvas, i) for i in range(B)]
+    left = torch.as_tensor(np.stack([l for l, _ in pairs]), device=dev)
+    right = torch.as_tensor(np.stack([r for _, r in pairs]), device=dev)
+    for name, (run, per_frame) in engines.items():
+        frames = [left + float(i) * 1e-6 for i in range(N_ENGINE_FRAMES)]
+        run(frames[0], right, dev)  # warm-up
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        disps = [run(f, right, dev) for f in frames]
+        end.record()
+        end.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        require_launches(f"{name} B={B}", dict(cuda.LAUNCHES), per_frame, N_ENGINE_FRAMES)
+        ms_call = start.elapsed_time(end) / N_ENGINE_FRAMES
+        if disps[0].shape != (B, H, W) or not torch.isfinite(disps[0]).all():
+            raise AssertionError(f"{name} B={B}: bad disparity")
+        accs = []
+        for b in range(B):
+            require_equal(f"{name} B={B} camera {b} vs its one-camera call", disps[0][b],
+                          run(frames[0][b], right[b], dev))
+            accs.append(accuracy(disps[0][b]))
+            if not (accs[-1][0] < 1.0 and accs[-1][1] > 0.25):
+                raise AssertionError(f"{name} B={B} camera {b}: median |disp - {TRUE_DISP}| "
+                                     f"{accs[-1][0]} px, valid {accs[-1][1]}")
+        one = results[name]["ms_frame"]
+        results[name]["batched"] = dict(cameras=B, ms_call=ms_call)
+        print(f"[engines B={B}] {name}: {ms_call:.3f} ms a call of {B} cameras over "
+              f"{N_ENGINE_FRAMES} calls ({B * 1000.0 / ms_call:.1f} camera frames a second) "
+              f"against {one:.3f} ms/frame for one camera ({ms_call / (B * one):.3f} of {B} "
+              f"one-camera frames); each camera's disparity equal to its one-camera call's; "
+              f"median |disp - {TRUE_DISP}| "
+              + ", ".join(f"{m:.4f}" for m, _ in accs) + " px, valid "
+              + ", ".join(f"{v:.4f}" for _, v in accs) + f"; launches {launches}")
 
 
 def lk_bounds(call, steps: list) -> dict:
@@ -927,7 +1010,8 @@ def lk_bounds(call, steps: list) -> dict:
     and the most steps any point took times LK_STEP_CHAIN; the levels follow
     one another, since each slack window sits at the coarser level's guess."""
     (tmpl_levels, _, points, *_), kwargs = call[1], call[2]
-    K, slack, wins = points.shape[0], kwargs["slack"], kwargs["wins"]
+    # Points of every camera of a batch.
+    K, slack, wins = points.shape[:-1].numel(), kwargs["slack"], kwargs["wins"]
     taken = dict(steps)
     nbytes, flops, chain = K * (4 * 2 * 2 + 4 * 2 + 4 * 2 + 1), 0, 0
     for lvl in range(len(tmpl_levels) - 1, -1, -1):
@@ -972,11 +1056,27 @@ def record_lk_calls(fn) -> list:
     return [(*call, launch) for call, launch in zip(calls, launches)]
 
 
-def phase_lk_kernels(calls: list) -> dict:
+def folded(launch: tuple) -> tuple:
+    """lk_track's wrapper arguments with a batch of cameras folded into the
+    rings, as the wrapper folds them (ops/windows.py::fold_rings): the same
+    launch, without the few small kernels that fold the frame indices, so
+    that a timing window holds the LK kernel alone."""
+    tmpl, srch, pts, init, src_t, src_s, *rest = launch
+    batch = tuple(pts.shape[:-2])
+    if not batch:
+        return launch
+    K = pts.shape[-2]
+    tmpl, src_t = fold_rings(tmpl, src_t, batch, K)
+    srch, src_s = fold_rings(srch, src_s, batch, K)
+    return (tmpl, srch, pts.reshape(-1, 2), init.reshape(-1, 2), src_t, src_s, *rest)
+
+
+def phase_lk_kernels(calls: list, tag: str = "lk") -> dict:
     """lk_track against its twin on one frontend frame's recorded inputs (4
-    levels, forward then backward): bit-identical; then each direction's
-    times, bound and chain, and the Gauss-Newton steps the points took on
-    each level (from the twin)."""
+    levels, forward then backward; one camera, or a batch of them in one
+    launch): bit-identical; then each direction's times, bound and chain,
+    and the Gauss-Newton steps the points took on each level (from the
+    twin)."""
     if [c[0] for c in calls] != ["lk_track"] * 2:
         raise AssertionError(f"expected a forward and a backward lk_track, got {[c[0] for c in calls]}")
     err, times, bounds = 0.0, [], []
@@ -989,14 +1089,16 @@ def phase_lk_kernels(calls: list) -> dict:
             require_equal(f"lk_track {direction}", fa, fb)
             err = max(err, max_abs(fa, fb))
         for lvl, moved in steps:
-            print(f"[lk] {direction} level {lvl} (window {kwargs['wins'][lvl]}): Gauss-Newton "
+            print(f"[{tag}] {direction} level {lvl} (window {kwargs['wins'][lvl]}): Gauss-Newton "
                   f"steps mean {moved.float().mean().item():.3f}, max {int(moved.max())} "
                   f"over {moved.numel()} points")
-        times.append(measure("lk_track", lambda: cuda.lk_track(*launch),
+        flat = folded(launch)
+        times.append(measure("lk_track", lambda: cuda.lk_track(*flat),
                              lambda: lk.lk_track_plain(*args, **kwargs), 5))
         bounds.append(lk_bounds((name, args, kwargs), steps))
         b = bounds[-1]
-        print(f"[lk] lk_track {direction} ({len(args[0])} levels, K={args[2].shape[0]}): "
+        print(f"[{tag}] lk_track {direction} ({len(args[0])} levels, points "
+              f"{tuple(args[2].shape[:-1])}): "
               f"{times_line(times[-1])}; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), chain of "
               f"{b['chain_ops']} dependent operations ({b['chain_ms']:.5f} ms at {OP_CYCLES} "
               f"cycles an operation, {CLOCK_HZ / 1e9:.2f} GHz)")
@@ -1005,7 +1107,7 @@ def phase_lk_kernels(calls: list) -> dict:
                bound_by=bounds[0]["bound_by"],
                chain_ops=statistics.mean(b["chain_ops"] for b in bounds),
                chain_ms=statistics.mean(b["chain_ms"] for b in bounds))
-    print(f"[lk] lk_track, a launch (mean of the 2): {times_line(row)}; bound "
+    print(f"[{tag}] lk_track, a launch (mean of the 2): {times_line(row)}; bound "
           f"{row['bound_ms']:.5f} ms ({row['bound_by']}), chain {row['chain_ms']:.5f} ms, "
           f"max |diff| {row['max_abs_err']}; a frame's LK: 2 launches, "
           f"{2 * row['device_ms'] * 1e3:.3f} us of device time")
@@ -1152,51 +1254,48 @@ def _tensors(obj) -> list:
     return out
 
 
-def phase_frontend_graph(fe, rig, config, lk_device_ms: float) -> float:
-    """full_frontend_step captured whole in one CUDA graph, with static
-    state, graph, previous-gray and image inputs, then replayed over the
-    timed frames of phase_frontend from the same start: after each replay
-    the outputs' tracker state, landmark graph and gray image are copied
-    into the static inputs, and every output is consumed as there. The
-    first and the last frames' labels, slot ids and pixels must equal the
-    call path's. Returns the replay's ms/frame."""
-    state0, graph0, prev0 = fe["start"]
-    frames = fe["frames"][5:5 + N_FRAMES]
+def frontend_graph(step, start, frames, first, last, tag: str) -> float:
+    """A frontend call, step(state, graph, prev_gray, left, right) -> (out,
+    gray), captured whole in one CUDA graph with static state, graph,
+    previous-gray and image inputs, then replayed over frames from the
+    state start = (state, graph, prev_gray): after each replay the outputs'
+    tracker state, landmark graph and gray image are copied into the static
+    inputs, and every output is consumed as in phase_frontend. The first
+    and the last replayed frames' labels, slot ids and pixels must equal
+    first's and last's, the call path's. Returns the replay's ms/frame."""
+    state0, graph0, prev0 = start
     dev = prev0.device
     st, gr, prev = (_map_tensors(torch.clone, x) for x in (state0, graph0, prev0))
     left, right = (t.clone() for t in frames[0])
 
-    def step():
-        return full_frontend_step(st, gr, prev, left, right, rig, config, fe["params"], device=dev)
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        step()
+        step(st, gr, prev, left, right)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out, gray = step()
+        out, gray = step(st, gr, prev, left, right)
 
     def load(state, lmk_graph, prev_gray, frame):
         for dst, src in zip(_tensors((st, gr, prev, left, right)),
                             _tensors((state, lmk_graph, prev_gray, *frame))):
             dst.copy_(src)
 
-    def require_frame(tag, call_out):
+    def require_frame(which, call_out):
         for field, a, b in (("labels", out.mesher.labels, call_out.mesher.labels),
                             ("slot ids", out.tracker_state.table.ids, call_out.tracker_state.table.ids),
                             ("pixels", out.tracker_state.table.pixels,
                              call_out.tracker_state.table.pixels)):
-            require_equal(f"frontend graph {tag} {field} vs the call path's", a, b)
+            require_equal(f"{tag} {which} {field} vs the call path's", a, b)
 
     load(state0, graph0, prev0, frames[0])
     graph.replay()
-    require_frame("frame 0", fe["first"])
+    require_frame("frame 0", first)
     load(state0, graph0, prev0, frames[0])
     digest = torch.zeros((), device=dev, dtype=torch.float64)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
     for i, frame in enumerate(frames):
         if i:
             load(out.tracker_state, out.graph, gray, frame)
@@ -1204,15 +1303,30 @@ def phase_frontend_graph(fe, rig, config, lk_device_ms: float) -> float:
         m = out.mesher
         digest += (out.perception.disparity.sum() + out.perception.enhanced_left.sum()
                    + m.disparities.sum() + m.labels.sum() + m.sizes.sum())
-    end.record()
-    end.synchronize()
-    ms_frame = start.elapsed_time(end) / N_FRAMES
-    require_frame(f"frame {N_FRAMES - 1}", fe["out"])
-    print(f"[frontend graph] one CUDA graph a frame, {N_FRAMES} frames: {ms_frame:.3f} ms/frame "
-          f"({1000.0 / ms_frame:.1f} fps) against {fe['ms_frame']:.3f} ms/frame by calls; digest "
-          f"{float(digest):.6e}; the first and last frames' labels, slot ids and pixels equal to "
-          f"the call path's; LK (2 lk_track launches, {1e3 * lk_device_ms:.3f} us) "
-          f"{100.0 * lk_device_ms / ms_frame:.2f}% of the frame")
+    t1.record()
+    t1.synchronize()
+    ms_frame = t0.elapsed_time(t1) / len(frames)
+    require_frame(f"frame {len(frames) - 1}", last)
+    print(f"[{tag}] one CUDA graph a call, {len(frames)} calls: {ms_frame:.3f} ms a call; digest "
+          f"{float(digest):.6e}; the first and last calls' labels, slot ids and pixels equal to "
+          f"the call path's")
+    return ms_frame
+
+
+def phase_frontend_graph(fe, rig, config, lk_device_ms: float) -> float:
+    """full_frontend_step as one CUDA graph a frame (frontend_graph) over the
+    timed frames of phase_frontend, from the same start; prints LK's share
+    of the replayed frame. Returns the replay's ms/frame."""
+    dev = fe["start"][2].device
+
+    def step(st, gr, prev, left, right):
+        return full_frontend_step(st, gr, prev, left, right, rig, config, fe["params"], device=dev)
+
+    ms_frame = frontend_graph(step, fe["start"], fe["frames"][5:5 + N_FRAMES], fe["first"],
+                              fe["out"], "frontend graph")
+    print(f"[frontend graph] {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps) against "
+          f"{fe['ms_frame']:.3f} ms/frame by calls; LK (2 lk_track launches, "
+          f"{1e3 * lk_device_ms:.3f} us) {100.0 * lk_device_ms / ms_frame:.2f}% of the frame")
     return ms_frame
 
 
@@ -1466,6 +1580,215 @@ def phase_batched(canvas, rig, config, rows: dict, l2: dict) -> dict:
     return krows
 
 
+def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
+    """The fleet frontend (see the module docstring, phase 13); returns
+    lk_track's row at N_CAMERAS cameras, with its launches a call."""
+    B = N_CAMERAS
+    config = PerceptionConfig(engine="patchmatch", max_disp=MAX_DISP, internal_scale=FARM_SCALE)
+    params = ObjectMesherDeviceParams()
+    frames = []
+    for i in range(5 + N_FRAMES + 1):
+        pairs = [make_mono_u8(canvas, i + FLEET_PHASE * b) for b in range(B)]
+        frames.append(tuple(torch.as_tensor(np.stack(side), device=dev) for side in zip(*pairs)))
+
+    def fleet_step(st, gr, prev, left, right):
+        return multi_camera_frontend_step(st, gr, prev, left, right, rig, config, params,
+                                          device=dev)
+
+    def one_step(st, gr, prev, left, right):
+        """One camera's full_frontend_step on its uint8 mono frames."""
+        return full_frontend_step(st, gr, prev, prepare_frames(left[None], dev)[0],
+                                  prepare_frames(right[None], dev)[0], rig, config, params,
+                                  device=dev)
+
+    state, graph = create_fleet_frontend_state(B, params, image_shape=(H, W), device=dev)
+    prev = to_grayscale(prepare_frames(frames[0][0], dev))
+    prev0 = prev
+
+    def step(i):
+        nonlocal state, graph, prev
+        out, prev = fleet_step(state, graph, prev, *frames[i])
+        state, graph = out.tracker_state, out.graph
+        return out
+
+    for i in range(4):
+        out = step(i)
+        if i == 0:
+            alive = out.tracker_state.table.alive.sum(-1).tolist()
+            if not (bool(out.mesher.is_keyframe.all()) and min(alive) >= 50):
+                raise AssertionError(f"fleet first keyframe: {alive} landmarks alive")
+    calls = record_lk_calls(lambda: step(4))
+    torch.cuda.synchronize()
+    lk_row = phase_lk_kernels(calls, f"fleet lk B={B}")["lk_track"]
+    one = rows["lk_track"]
+    print(f"[fleet lk] lk_track, {B} cameras in one launch a direction: device "
+          f"{lk_row['device_ms'] * 1e3:.3f} us ({lk_row['device_method']}; graph replay "
+          f"{lk_row['graph_ms'] * 1e3:.3f}) against {one['device_ms'] * 1e3:.3f} us for one camera "
+          f"(phase 9; {lk_row['device_ms'] / one['device_ms']:.3f}x); bound "
+          f"{lk_row['bound_ms'] * 1e3:.3f} us ({lk_row['bound_by']}) against "
+          f"{one['bound_ms'] * 1e3:.3f}; chain {lk_row['chain_ms'] * 1e3:.3f} us against "
+          f"{one['chain_ms'] * 1e3:.3f}")
+
+    cuda.reset_launches()
+    start_state = (state, graph, prev)
+    before, outs = [state], []
+    digest = torch.zeros((), device=dev, dtype=torch.float64)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    wall0 = time.perf_counter()
+    t0.record()
+    for i in range(5, 5 + N_FRAMES):
+        out = step(i)
+        m = out.mesher
+        digest += (out.perception.disparity.sum() + out.perception.enhanced_left.sum()
+                   + m.disparities.sum() + m.labels.sum() + m.sizes.sum())
+        outs.append(out)
+        before.append(state)
+    t1.record()
+    t1.synchronize()
+    wall = (time.perf_counter() - wall0) / N_FRAMES
+    launches = dict(cuda.LAUNCHES)
+    ms_call = t0.elapsed_time(t1) / N_FRAMES
+    require_launches(f"fleet B={B}", launches, PER_FRONTEND_FRAME, N_FRAMES)
+    if launches["lk_track"] != 2 * N_FRAMES:
+        raise AssertionError(f"fleet: lk_track launched {launches['lk_track']} times in "
+                             f"{N_FRAMES} calls")
+
+    lines = []
+    for b in range(B):
+        errs, disps = [], []
+        for k, out in enumerate(outs):
+            if out.perception.disparity.shape != (B, H, W) or out.mesher.labels.shape[0] != B:
+                raise AssertionError("fleet: outputs without the camera axis")
+            for field, t in (*out.perception._asdict().items(),
+                             *((f, v) for f, v in out.mesher._asdict().items()
+                               if v.is_floating_point())):
+                if not torch.isfinite(t[b]).all():
+                    raise AssertionError(f"fleet camera {b} call {k}: non-finite {field}")
+            a, c = before[k].table, before[k + 1].table
+            same = (a.ids[b] >= 0) & (a.ids[b] == c.ids[b]) & (c.missed[b] == 0)
+            moved = c.pixels[b][same] - a.pixels[b][same]
+            moved[:, 0] += SHIFT * (a.missed[b][same].float() + 1)
+            errs.append(moved.abs().flatten())
+            d = out.mesher.disparities[b][out.tracker_state.table.alive[b]]
+            disps.append(d[d > 0] - TRUE_DISP)
+        errs, disps = torch.cat(errs), torch.cat(disps)
+        med_err, med_disp = float(errs.median()), float(disps.abs().median())
+        alive = int(outs[-1].tracker_state.table.alive[b].sum())
+        lines.append(f"camera {b}: median |track error| {med_err:.5f} px over "
+                     f"{errs.numel() // 2} tracks, median |stripe disp - {TRUE_DISP}| "
+                     f"{med_disp:.4f} px, {alive} alive, "
+                     f"{int((outs[-1].mesher.sizes[b] >= 3).sum())} clusters of >= 3")
+        if not (med_err < 0.1 and med_disp < 0.5 and alive >= 50):
+            raise AssertionError(f"fleet {lines[-1]}")
+
+    # Each camera against its one-camera full_frontend_step on the card.
+    start_1 = outs_1 = None
+    ms_call_1 = []  # each camera's one-camera calls, by calls
+    for b in range(B):
+        st1 = StereoTrackerState.create(params.tracker, image_shape=(H, W), device=dev)
+        gr1 = LandmarkGraph.create(params.tracker.capacity, device=dev)
+        prev1, singles = prev0[b], []
+        for i in range(5 + N_FRAMES):
+            if i == 5:
+                start_1 = start_1 or (st1, gr1, prev1)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+            o1, prev1 = one_step(st1, gr1, prev1, frames[i][0][b], frames[i][1][b])
+            st1, gr1 = o1.tracker_state, o1.graph
+            if i >= 5:
+                singles.append(o1)
+        e1.record()
+        e1.synchronize()
+        ms_call_1.append(e0.elapsed_time(e1) / N_FRAMES)
+        exact_px = exact_disp = exact_enh = 0
+        enh_max = [0.0, 0.0]  # max |enhanced| over the calls, batched and one camera
+        for k, (out, o1) in enumerate(zip(outs, singles)):
+            tag = f"fleet camera {b} call {k}"
+            require_equal(f"{tag} disparity map vs one camera's", out.perception.disparity[b],
+                          o1.perception.disparity)
+            require_equal(f"{tag} depth vs one camera's", out.perception.depth[b],
+                          o1.perception.depth)
+            require_equal(f"{tag} labels vs one camera's", out.mesher.labels[b], o1.mesher.labels)
+            require_equal(f"{tag} slot ids vs one camera's", out.tracker_state.table.ids[b],
+                          o1.tracker_state.table.ids)
+            require_equal(f"{tag} alive vs one camera's", out.mesher.alive[b], o1.mesher.alive)
+            alive = o1.mesher.alive
+            dpx = (out.tracker_state.table.pixels[b] - o1.tracker_state.table.pixels)[alive]
+            close = float((dpx.abs().amax(-1) <= 1e-3).float().mean()) if alive.any() else 1.0
+            if close < 0.99:
+                raise AssertionError(f"{tag}: pixels within 1e-3 px on {close} of alive slots")
+            exact_px += torch.equal(out.tracker_state.table.pixels[b],
+                                    o1.tracker_state.table.pixels)
+            exact_disp += torch.equal(out.mesher.disparities[b], o1.mesher.disparities)
+            exact_enh += torch.equal(out.perception.enhanced_left[b], o1.perception.enhanced_left)
+            enh_max = [max(enh_max[0], float(out.perception.enhanced_left[b].abs().max())),
+                       max(enh_max[1], float(o1.perception.enhanced_left.abs().max()))]
+        if b == 0:
+            outs_1 = singles
+        lines[b] += (f"; against its one-camera full_frontend_step ({ms_call_1[-1]:.3f} ms a "
+                     f"call by calls): disparity map, depth, labels, slot ids and alive set "
+                     f"equal in {N_FRAMES} of {N_FRAMES} calls, pixels bit-identical in "
+                     f"{exact_px}, stripe disparities bit-identical in {exact_disp}; enhanced "
+                     f"image bit-identical in {exact_enh}, max |enhanced| {enh_max[0]:.6e} "
+                     f"batched, {enh_max[1]:.6e} one camera")
+    for line in lines:
+        print(f"[fleet] {line}")
+
+    sites = sync_sites(lambda: step(5 + N_FRAMES))
+    torch.cuda.synchronize()
+    print_syncs(f"fleet B={B}", sites)
+    if sites:
+        raise AssertionError(f"fleet: multi_camera_frontend_step made {len(sites)} host syncs")
+
+    timed = frames[5:5 + N_FRAMES]
+    graph_b = frontend_graph(fleet_step, start_state, timed, outs[0], outs[-1],
+                             f"fleet graph B={B}")
+    graph_1 = frontend_graph(one_step, start_1, [(l[0], r[0]) for l, r in timed], outs_1[0],
+                             outs_1[-1], "fleet graph B=1")
+    args_b = (*start_state, *timed[0])
+    args_1 = (*start_1, timed[0][0][0], timed[0][1][0])
+    count_1 = kernel_count(lambda: one_step(*args_1))
+    count_b = kernel_count(lambda: fleet_step(*args_b))
+    nodes_1 = graph_kernel_nodes(lambda: one_step(*args_1))
+    nodes_b = graph_kernel_nodes(lambda: fleet_step(*args_b))
+    mem_1 = peak_bytes(lambda: one_step(*args_1))
+    mem_b = peak_bytes(lambda: fleet_step(*args_b))
+    print(f"[fleet] B={B} (uint8 mono, internal_scale={FARM_SCALE}, mesher_scale=1): "
+          f"{ms_call:.3f} ms a call by calls (host {1000.0 * wall:.3f} ms; one camera "
+          f"{statistics.mean(ms_call_1):.3f}), {graph_b:.3f} ms by "
+          f"graph: {B * 1000.0 / graph_b:.1f} fps per GPU (by calls {B * 1000.0 / ms_call:.1f}); "
+          f"one camera, full_frontend_step at the same point: {graph_1:.3f} ms by graph "
+          f"({1000.0 / graph_1:.1f} fps); graph B={B} / ({B} x B=1) {graph_b / (B * graph_1):.3f}; "
+          f"digest {float(digest):.6e}; launches {launches} over {N_FRAMES} calls; CUDA kernels "
+          f"a call (profiler) B=1 {sum(count_1.values()):.1f}, B={B} {sum(count_b.values()):.1f}, "
+          f"kernel nodes of its CUDA graph B=1 {nodes_1}, B={B} {nodes_b}; peak device memory "
+          f"(max_memory_allocated) B=1 {mem_1[0] / 2**20:.1f} MiB ({mem_1[1] / 2**20:.1f} the "
+          f"call's own), B={B} {mem_b[0] / 2**20:.1f} MiB ({mem_b[1] / 2**20:.1f})")
+    print(f"[fleet] kernels a call, B={B} less B=1 (profiler): {count_changes(count_1, count_b)}")
+
+    # A call and its two halves by calls, at N_CAMERAS and at one camera,
+    # each call's outputs dropped before the next (the timed loop above
+    # keeps every call's).
+    from ocean_perception_tpu_torch.mesher.object_mesher import mesher_device_step
+
+    fxb = torch.full((), float(np.float32(rig.fx) * np.float32(rig.baseline)), device=dev)
+    lefts, rights = (prepare_frames(t, dev) for t in timed[0])
+    grays = to_grayscale(lefts), to_grayscale(rights)
+    stages = {
+        f"multi_camera_frontend_step, B={B}": lambda: fleet_step(*args_b),
+        "full_frontend_step, B=1": lambda: one_step(*args_1),
+        f"perception_step, B={B}": lambda: perception_step(lefts, rights, rig, config, dev),
+        "perception_step, B=1": lambda: perception_step(lefts[0], rights[0], rig, config, dev),
+        f"mesher_device_step, B={B}": lambda: mesher_device_step(*start_state, *grays, fxb,
+                                                                 params),
+        "mesher_device_step, B=1": lambda: mesher_device_step(*start_1, grays[0][0],
+                                                              grays[1][0], fxb, params),
+    }
+    print("[fleet stages] by calls: " + "; ".join(
+        f"{name} {call_ms(fn, 5):.3f} ms" for name, fn in stages.items()))
+    return dict(lk_row, launches=launches["lk_track"] // N_FRAMES)
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -1494,7 +1817,7 @@ def main() -> int:
     require_equal("strip-volume perception disparity vs the (H, W, D) path's", strip_disp, disp)
     phase_graph(left_rgb, right_rgb, rig, strip_config, disp, strip_runs,
                 ("pm_match_strip", rows["pm_match_strip"]["graph_ms"]), "strip graph")
-    phase_engines(left_rgb, right_rgb, rig)
+    phase_engines(left_rgb, right_rgb, rig, canvas)
 
     fe = phase_frontend(canvas, rig, config, dev)
     rows.update(phase_lk_kernels(fe["calls"]))
@@ -1502,6 +1825,7 @@ def main() -> int:
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
     batched = phase_batched(canvas, rig, config, rows, l2)
+    fleet_lk = phase_fleet(canvas, rig, rows, dev)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
@@ -1511,6 +1835,8 @@ def main() -> int:
     # The batched path's numbers beside each stereo kernel's row (phase 12).
     for k, row in batched.items():
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
+    # And lk_track's, from the fleet frontend (phase 13).
+    rows["lk_track"]["batched"] = dict(cameras=N_CAMERAS, **fleet_lk)
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=launches[k], library_ms=None, **rows[k])

@@ -9,6 +9,10 @@ this module imports no JAX) and return the port's frozen dataclasses and
 tensors. Fields that only choose between TPU code paths that compute the
 same result (scan unrolls, the Pallas routes) have no counterpart; the one
 such choice the port also offers, the strip-volume build, carries over.
+
+The state converters keep whatever leading axes the arrays have: a fleet's
+state (``parallel.sharded_pipeline.create_fleet_frontend_state``, a leading
+camera axis on every leaf) converts as one camera's does.
 """
 
 from __future__ import annotations

@@ -16,8 +16,9 @@ from ..ops.image import morph_gradient, resize
 
 def estimate_foreground_mask(gray: torch.Tensor, ksize: int = 15, min_gradient: float = 20.0,
                              downsize: int = 4) -> torch.Tensor:
-    """Boolean (H, W) mask of textured (object) regions."""
-    H, W = gray.shape
+    """Boolean (..., H, W) mask of textured (object) regions of (..., H, W)
+    images."""
+    H, W = gray.shape[-2], gray.shape[-1]
     kwidth = 2 * max(2, ksize // downsize) + 1
     small = resize(gray, (H // downsize, W // downsize), method="linear") if downsize > 1 else gray
     mask_small = morph_gradient(small, kwidth) > (min_gradient / 255.0)

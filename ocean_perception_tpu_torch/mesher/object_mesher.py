@@ -27,7 +27,7 @@ import torch
 
 from ..core.cameras import StereoCamera
 from ..ops.cuda import entry_device
-from ..ops.interp import bilinear_sample
+from ..ops.interp import bilinear_sample, gather_pixels
 from ..tracking.stereo_tracker import (StereoTrackerParams, StereoTrackerState, device_scalar,
                                       track_and_triangulate)
 from .foreground import estimate_foreground_mask
@@ -52,13 +52,13 @@ class ObjectMesherDeviceParams:
 
 
 class MesherDeviceOutput(NamedTuple):
-    labels: torch.Tensor       # (K,) cluster label per slot (-1 dead)
-    sizes: torch.Tensor        # (K,) component size at root slots
-    pixels: torch.Tensor       # (K, 2)
-    disparities: torch.Tensor  # (K,)
-    alive: torch.Tensor        # (K,)
-    foreground: torch.Tensor   # (H, W) bool
-    is_keyframe: torch.Tensor
+    labels: torch.Tensor       # ([B,] K) cluster label per slot (-1 dead)
+    sizes: torch.Tensor        # ([B,] K) component size at root slots
+    pixels: torch.Tensor       # ([B,] K, 2)
+    disparities: torch.Tensor  # ([B,] K)
+    alive: torch.Tensor        # ([B,] K)
+    foreground: torch.Tensor   # ([B,] H, W) bool
+    is_keyframe: torch.Tensor  # ([B,]) bool
 
 
 def segment_fractions(S: int, device=None) -> torch.Tensor:
@@ -76,7 +76,9 @@ def mesher_device_step(tracker_state: StereoTrackerState, graph: LandmarkGraph,
                        prev_left: torch.Tensor, cur_left: torch.Tensor, cur_right: torch.Tensor,
                        fx_baseline, params: ObjectMesherDeviceParams
                        ) -> Tuple[StereoTrackerState, LandmarkGraph, MesherDeviceOutput]:
-    """Steps 1-4 of ProcessStereo, on the images' device, with no host sync."""
+    """Steps 1-4 of ProcessStereo, on the images' device, with no host sync.
+    A batch of cameras: a batched state and graph and (B, H, W) images; the
+    pairwise gates are (B, K, K), each camera's pairs its own."""
     dev = cur_left.device
     new_state, out = track_and_triangulate(tracker_state, prev_left, cur_left, cur_right,
                                            fx_baseline, params.tracker)
@@ -88,28 +90,30 @@ def mesher_device_step(tracker_state: StereoTrackerState, graph: LandmarkGraph,
     # Pairwise gates.
     alive = obs.valid & (obs.disparities > 0)
     pts = obs.pixels
-    diff = pts[:, None, :] - pts[None, :, :]
+    nb = pts.ndim - 2
+    diff = pts[..., :, None, :] - pts[..., None, :, :]
     d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
     near = d2 <= params.neighbor_radius_px ** 2
     depth = fxb / obs.disparities.clamp_min(1e-3)
-    depth_ok = (depth[:, None] - depth[None, :]).abs() <= params.edge_max_depth_change
+    depth_ok = (depth[..., :, None] - depth[..., None, :]).abs() <= params.edge_max_depth_change
 
     # Foreground fraction along each segment: S samples per pair.
-    ts = segment_fractions(params.edge_samples, dev)[None, None, :, None]
-    seg = pts[:, None, None, :] * (1 - ts) + pts[None, :, None, :] * ts   # (K, K, S, 2)
+    ts = segment_fractions(params.edge_samples, dev)[:, None]
+    seg = pts[..., :, None, None, :] * (1 - ts) + pts[..., None, :, None, :] * ts  # (K, K, S, 2)
     f = params.fg_downsample
     if f > 1:
-        Hf, Wf = fg.shape[0] // f, fg.shape[1] // f
-        fg_small = fg[: Hf * f, : Wf * f].float().reshape(Hf, f, Wf, f).mean(dim=(1, 3))
+        Hf, Wf = fg.shape[-2] // f, fg.shape[-1] // f
+        fg_small = fg[..., : Hf * f, : Wf * f].float().reshape(*fg.shape[:-2], Hf, f, Wf, f)
+        fg_small = fg_small.mean(dim=(-3, -1))
         fdiv = torch.full((), float(f), device=dev)
         yy = (seg[..., 1] / fdiv).int().clamp(0, Hf - 1).long()
         xx = (seg[..., 0] / fdiv).int().clamp(0, Wf - 1).long()
-        fg_frac = fg_small[yy, xx].mean(dim=-1)
+        fg_frac = gather_pixels(fg_small, yy, xx, nb).mean(dim=-1)
     else:
-        fg_frac = bilinear_sample(fg.float(), seg[..., 1], seg[..., 0]).mean(dim=-1)
+        fg_frac = bilinear_sample(fg.float(), seg[..., 1], seg[..., 0], nb).mean(dim=-1)
     fg_ok = fg_frac >= params.edge_min_foreground_percent
 
-    pair_valid = near & alive[:, None] & alive[None, :]
+    pair_valid = near & alive[..., :, None] & alive[..., None, :]
     max_weight = params.min_obs_connect_edge + params.min_obs_disconnect_edge
     graph = update_graph(graph, obs.lmk_ids, depth_ok & fg_ok, pair_valid, max_weight)
     labels = get_cluster_labels(graph, alive, params.min_obs_connect_edge)
@@ -127,8 +131,9 @@ class ObjectMesherParams:
 
 class ObjectMesher:
     """Host wrapper: the device step, then per-cluster Delaunay and
-    back-projection. Runs on ``device``: the card by default, where it
-    raises without one; CPU callers pass ``device="cpu"``."""
+    back-projection, for one camera. Runs on ``device``: the card by
+    default, where it raises without one; CPU callers pass
+    ``device="cpu"``."""
 
     def __init__(self, params: ObjectMesherParams, rig: StereoCamera,
                  device: torch.device | str = "cuda"):
@@ -155,7 +160,8 @@ class ObjectMesher:
 def build_meshes(out: MesherDeviceOutput, rig: StereoCamera, disparity_scale: float = 1.0,
                  vertex_min_obs: int = 3) -> TriangleMesh:
     """Step 5 of ProcessStereo on the host: per-cluster Delaunay and
-    back-projection through each vertex's disparity."""
+    back-projection through each vertex's disparity, for one camera (a
+    fleet caller passes camera b's slice of each output)."""
     from scipy.spatial import Delaunay, QhullError
 
     labels = out.labels.cpu().numpy()

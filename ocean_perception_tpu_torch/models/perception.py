@@ -9,10 +9,11 @@ the card unless the caller passes ``device="cpu"``: on a CUDA device the
 cost volume and the PatchMatch match run on the hand-written kernels in
 ``csrc/``, and so does the LK tracker; on the CPU their plain twins run.
 
-``perception_step`` also takes a batch of cameras, (B, H, W, 3) images, the
-counterpart of ``jax.vmap`` of the reference step: every kernel launch and
-every plain op carries all B cameras, so a batched call launches about as
-many kernels as one camera's call.
+``perception_step`` and ``full_frontend_step`` also take a batch of
+cameras, (B, H, W, 3) images, the counterpart of ``jax.vmap`` of the
+reference step: every kernel launch and every plain op carries all B
+cameras, so a batched call launches about as many kernels as one camera's
+call.
 """
 
 from __future__ import annotations
@@ -136,6 +137,11 @@ def full_frontend_step(
     frames and runs the per-cluster Delaunay
     (``mesher.object_mesher.build_meshes``).
 
+    A batch of B cameras: (B, H, W, 3) images, (B, H, W) ``prev_left_gray``
+    and the batched state and graph (``StereoTrackerState.create(...,
+    batch=B)``, ``LandmarkGraph.create(..., batch=B)``); every output has
+    the same leading axis.
+
     ``mesher_scale`` (a power of two) runs the tracking/mesher half on
     pyr_down'ed grays (the reference mesher node's ``mesher_input_height``).
     Its pixels and disparities are then in downscaled coordinates, and the
@@ -154,6 +160,12 @@ def full_frontend_step(
     left_rgb = torch.as_tensor(left_rgb, dtype=torch.float32, device=device)
     right_rgb = torch.as_tensor(right_rgb, dtype=torch.float32, device=device)
     prev_left_gray = torch.as_tensor(prev_left_gray, dtype=torch.float32, device=device)
+    batch = tuple(left_rgb.shape[:-3])
+    if tuple(tracker_state.table.ids.shape[:-1]) != batch \
+            or tuple(prev_left_gray.shape[:-2]) != batch:
+        raise ValueError(f"images of batch {batch} need a tracker state and a previous gray of "
+                         f"that batch, got {tuple(tracker_state.table.ids.shape[:-1])} and "
+                         f"{tuple(prev_left_gray.shape[:-2])}")
     tracker_state, graph = tracker_state.to(device), graph.to(device)
     out = perception_step(left_rgb, right_rgb, rig, config, device)
     gray_l = to_grayscale(left_rgb)

@@ -18,8 +18,10 @@ public functions that dispatch to them (``stereo/cost.py``,
 volume in the two strip layouts; each has its own entry in
 :data:`LAUNCHES`, so a run shows which layout the match went through.
 
-The stereo wrappers take a batch: any leading axes in front of an image's
-(H, W) (cameras) go into the one launch, the camera an index of the grid.
+The wrappers take a batch: any leading axes in front of an image's (H, W)
+(cameras) go into the one launch, the camera an index of the grid; for
+``lk_track``, the camera is folded into the ring axis, a block a point of
+every camera.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from .windows import fold_rings
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -318,33 +322,51 @@ def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int
     returns the points (K, 2) and the status (K,) bool; see
     tracking/lk.py::lk_track_plain. Level l is the (R, H, W) rings
     tmpl_levels[l] and srch_levels[l], walked with window wins[l] (0 skips
-    it). With K = 0 nothing is launched."""
+    it). With K = 0 nothing is launched.
+
+    A batch of cameras, points (*batch, K, 2) and rings (*batch, R, H, W),
+    is one launch of n*K blocks, n = prod(batch): each camera's ring is
+    folded into one ring of n*R frames (ops/windows.py::fold_rings) and a
+    point's frame index offset to its camera's frames, so the kernel's own
+    clamps never move a point to another camera. Returns (*batch, K, 2)
+    and (*batch, K)."""
     levels = len(tmpl_levels)
     if not 1 <= levels <= LK_MAX_LEVELS or len(srch_levels) != levels or len(wins) != levels:
         raise ValueError(f"need 1..{LK_MAX_LEVELS} levels of templates, search images and "
                          f"windows, got {levels}, {len(srch_levels)} and {len(wins)}")
+    batch = tuple(pts.shape[:-2])
     for l, (tmpl, srch) in enumerate(zip(tmpl_levels, srch_levels)):
         _require(tmpl, f"tmpl_levels[{l}]", (torch.float32,))
         _require(srch, f"srch_levels[{l}]", (torch.float32,))
-        if tmpl.ndim != 3 or srch.ndim != 3 or tmpl.shape[1:] != srch.shape[1:]:
-            raise ValueError(f"level {l}: templates and search images must be (R, H, W) rings "
-                             f"of one size, got {tuple(tmpl.shape)} and {tuple(srch.shape)}")
-    K = pts.shape[0]
+        if tmpl.ndim != len(batch) + 3 or srch.ndim != tmpl.ndim \
+                or tmpl.shape[-2:] != srch.shape[-2:] \
+                or tuple(tmpl.shape[:len(batch)]) != batch \
+                or tuple(srch.shape[:len(batch)]) != batch:
+            raise ValueError(f"level {l}: templates and search images must be "
+                             f"({'*batch, ' if batch else ''}R, H, W) rings of one size, got "
+                             f"{tuple(tmpl.shape)} and {tuple(srch.shape)} for points "
+                             f"{tuple(pts.shape)}")
+    K = pts.shape[-2]
     for name, t in (("pts", pts), ("init", init)):
-        _require(t, name, (torch.float32,), (K, 2))
+        _require(t, name, (torch.float32,), (*batch, K, 2))
     for name, t in (("src_t", src_t), ("src_s", src_s)):
-        _require(t, name, (torch.int32,), (K,))
+        _require(t, name, (torch.int32,), (*batch, K))
+    if batch:
+        tmpl_levels, src_t = fold_rings(tmpl_levels, src_t, batch, K)
+        srch_levels, src_s = fold_rings(srch_levels, src_s, batch, K)
+        pts, init = pts.reshape(-1, 2), init.reshape(-1, 2)
     if any(w != 0 and (w < 3 or w % 2 == 0) for w in wins):
         raise ValueError(f"windows must be odd and >= 3 (0 skips a level), got {list(wins)}")
     if slack < 1 or 2 * slack + 3 > 32:
         raise ValueError(f"need 1 <= slack <= 14, got {slack}")
-    out = torch.empty((K, 2), dtype=torch.float32, device=pts.device)
-    status = torch.empty((K,), dtype=torch.bool, device=pts.device)
-    if K == 0:
+    n = pts.shape[0]
+    out = torch.empty((*batch, K, 2), dtype=torch.float32, device=pts.device)
+    status = torch.empty((*batch, K), dtype=torch.bool, device=pts.device)
+    if n == 0:
         return out, status
     args = _LKTrack(pts=pts.data_ptr(), init=init.data_ptr(), src_t=src_t.data_ptr(),
                     src_s=src_s.data_ptr(), out_pts=out.data_ptr(), status=status.data_ptr(),
-                    levels=levels, K=K, slack=slack, pad=pad, max_iters=max_iters,
+                    levels=levels, K=n, slack=slack, pad=pad, max_iters=max_iters,
                     min_eig=min_eig, eps2=eps2)
     for l, (tmpl, srch, win) in enumerate(zip(tmpl_levels, srch_levels, wins)):
         args.lv[l] = _LKLevel(tmpl.data_ptr(), srch.data_ptr(), tmpl.shape[0], srch.shape[0],

@@ -6,13 +6,33 @@ GetSubpixel (patchmatch_gpu.cu:18-42).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
-def bilinear_sample(image: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def gather_pixels(image: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                  batch_dims: int = 0) -> torch.Tensor:
+    """``image[y, x]`` for integer (y, x); with ``batch_dims`` leading axes,
+    image (*batch, H, W, ...) and y, x (*batch, ...), each entry of the
+    batch read from its own image."""
+    if batch_dims == 0:
+        return image[y, x]
+    batch = image.shape[:batch_dims]
+    n = math.prod(batch)
+    b = torch.arange(n, device=image.device)[:, None]
+    flat = image.reshape(n, *image.shape[batch_dims:])
+    out = flat[b, y.reshape(n, -1), x.reshape(n, -1)]
+    return out.reshape(*y.shape, *image.shape[batch_dims + 2:])
+
+
+def bilinear_sample(image: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                    batch_dims: int = 0) -> torch.Tensor:
     """Sample an (H, W) or (H, W, C) image at float (y, x), clamped to the
-    borders: lerp rows, then columns. y and x broadcast to any shape."""
-    H, W = image.shape[0], image.shape[1]
+    borders: lerp rows, then columns. y and x broadcast to any shape. With
+    ``batch_dims`` leading axes, image (*batch, H, W[, C]) and y, x of the
+    same (*batch, ...) shape, each entry sampling its own image."""
+    H, W = image.shape[batch_dims], image.shape[batch_dims + 1]
     y = y.clamp(0.0, H - 1.0)
     x = x.clamp(0.0, W - 1.0)
     y0 = torch.floor(y).long()
@@ -21,11 +41,15 @@ def bilinear_sample(image: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> to
     x1 = (x0 + 1).clamp_max(W - 1)
     ty = y - y0.to(y.dtype)
     tx = x - x0.to(x.dtype)
-    if image.ndim == 3:
+    if image.ndim == batch_dims + 3:
         ty = ty[..., None]
         tx = tx[..., None]
-    c0 = (1.0 - ty) * image[y0, x0] + ty * image[y1, x0]
-    c1 = (1.0 - ty) * image[y0, x1] + ty * image[y1, x1]
+
+    def at(yi, xi):
+        return gather_pixels(image, yi, xi, batch_dims)
+
+    c0 = (1.0 - ty) * at(y0, x0) + ty * at(y1, x0)
+    c1 = (1.0 - ty) * at(y0, x1) + ty * at(y1, x1)
     return (1.0 - tx) * c0 + tx * c1
 
 

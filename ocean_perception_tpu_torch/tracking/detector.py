@@ -10,11 +10,13 @@ the best corner per cell, then a global top-K.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops.image import box_filter, dilate, sobel_x, sobel_y, sqrt_f32
+from ..ops.interp import gather_pixels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,9 +33,9 @@ class DetectorParams:
 
 
 class Detections(NamedTuple):
-    points: torch.Tensor  # (K, 2) float32 (x, y)
-    scores: torch.Tensor  # (K,)
-    valid: torch.Tensor   # (K,) bool
+    points: torch.Tensor  # ([B,] K, 2) float32 (x, y)
+    scores: torch.Tensor  # ([B,] K)
+    valid: torch.Tensor   # ([B,] K) bool
 
 
 def corner_score(image: torch.Tensor, params: DetectorParams) -> torch.Tensor:
@@ -55,27 +57,37 @@ def corner_score(image: torch.Tensor, params: DetectorParams) -> torch.Tensor:
 def mask_around_points(shape: Tuple[int, int], points: torch.Tensor, valid: torch.Tensor,
                        radius: float) -> torch.Tensor:
     """(H, W) bool, True within ``radius`` (a square) of any valid point:
-    a max-splat of the points, then a square dilation."""
+    a max-splat of the points, then a square dilation. Points (*batch, K, 2)
+    give (*batch, H, W), each camera its own points."""
     H, W = shape
-    xs = torch.round(points[:, 0]).clamp(0, W - 1).long()
-    ys = torch.round(points[:, 1]).clamp(0, H - 1).long()
-    splat = torch.zeros(H * W, dtype=torch.float32, device=points.device)
-    splat.scatter_reduce_(0, ys * W + xs, valid.float(), reduce="amax")
-    return dilate(splat.reshape(H, W), 2 * int(radius) + 1) > 0.5
+    batch = points.shape[:-2]
+    xs = torch.round(points[..., 0]).clamp(0, W - 1).long()
+    ys = torch.round(points[..., 1]).clamp(0, H - 1).long()
+    index = ys * W + xs
+    if batch:
+        cams = torch.arange(math.prod(batch), device=points.device).reshape(*batch, 1)
+        index = index + cams * (H * W)
+    splat = torch.zeros(math.prod(batch) * H * W, dtype=torch.float32, device=points.device)
+    splat.scatter_reduce_(0, index.reshape(-1), valid.float().reshape(-1), reduce="amax")
+    return dilate(splat.reshape(*batch, H, W), 2 * int(radius) + 1) > 0.5
 
 
 def detect_features(image: torch.Tensor, params: DetectorParams = DetectorParams(),
                     exclude_points: Optional[torch.Tensor] = None,
                     exclude_valid: Optional[torch.Tensor] = None) -> Detections:
-    """Top-K spatially spread corners; static output shape (K slots + valid)."""
-    H, W = image.shape
+    """Top-K spatially spread corners; static output shape (K slots + valid).
+    An (*batch, H, W) image gives (*batch, K) detections, each camera's
+    corners ranked against its own best."""
+    H, W = image.shape[-2], image.shape[-1]
+    batch = image.shape[:-2]
     K = params.max_features
     dev = image.device
     score = corner_score(image, params)
 
     # 3x3 non-max suppression, then the quality threshold relative to the best.
     score = torch.where(score >= dilate(score, 3), score, 0.0)
-    score = torch.where(score >= params.quality_level * score.max(), score, 0.0)
+    best = score.amax(dim=(-2, -1), keepdim=True)
+    score = torch.where(score >= params.quality_level * best, score, 0.0)
 
     yy = torch.arange(H, device=dev)[:, None]
     xx = torch.arange(W, device=dev)[None, :]
@@ -90,33 +102,40 @@ def detect_features(image: torch.Tensor, params: DetectorParams = DetectorParams
     cell = max(4, int(params.min_distance))
     Hc, Wc = -(-H // cell), -(-W // cell)
     padded = torch.nn.functional.pad(score, (0, Wc * cell - W, 0, Hc * cell - H))
-    cells = padded.reshape(Hc, cell, Wc, cell).permute(0, 2, 1, 3).reshape(Hc * Wc, cell * cell)
-    cell_best = cells.amax(dim=1)
-    cell_arg = cells.argmax(dim=1)
+    cells = padded.reshape(*batch, Hc, cell, Wc, cell).transpose(-3, -2)
+    cells = cells.reshape(*batch, Hc * Wc, cell * cell)
+    cell_best = cells.amax(dim=-1)
+    cell_arg = cells.argmax(dim=-1)
     n = torch.arange(Hc * Wc, device=dev)
     cy = (n // Wc) * cell + cell_arg // cell
     cx = (n % Wc) * cell + cell_arg % cell
 
     # lax.top_k: descending, ties in index order; a stable sort gives that.
     k_eff = min(K, Hc * Wc)
-    order = torch.sort(cell_best, descending=True, stable=True).indices[:k_eff]
-    top_scores = cell_best[order]
-    iy, ix = cy[order], cx[order]
+    order = torch.sort(cell_best, dim=-1, descending=True, stable=True).indices[..., :k_eff]
+    top_scores = cell_best.gather(-1, order)
+    iy, ix = cy.gather(-1, order), cx.gather(-1, order)
     pts = torch.stack([ix.float(), iy.float()], dim=-1)
     valid = top_scores > 0.0
 
     if params.subpixel:
-        ge = torch.nn.functional.pad(corner_score(image, params)[None, None], (1, 1, 1, 1),
-                                     mode="replicate")[0, 0]
-        c = ge[iy + 1, ix + 1]
-        sx0, sx1 = ge[iy + 1, ix], ge[iy + 1, ix + 2]
-        sy0, sy1 = ge[iy, ix + 1], ge[iy + 2, ix + 1]
+        n_img = math.prod(batch)
+        ge = torch.nn.functional.pad(corner_score(image, params).reshape(n_img, 1, H, W),
+                                     (1, 1, 1, 1), mode="replicate")
+        ge = ge.reshape(*batch, H + 2, W + 2)
+
+        def at(y, x):
+            return gather_pixels(ge, y, x, len(batch))
+
+        c = at(iy + 1, ix + 1)
+        sx0, sx1 = at(iy + 1, ix), at(iy + 1, ix + 2)
+        sy0, sy1 = at(iy, ix + 1), at(iy + 2, ix + 1)
         denx = sx0 + sx1 - 2.0 * c
         deny = sy0 + sy1 - 2.0 * c
         dx = torch.where(denx.abs() > 1e-12, 0.5 * (sx0 - sx1) / denx, 0.0)
         dy = torch.where(deny.abs() > 1e-12, 0.5 * (sy0 - sy1) / deny, 0.0)
         offs = torch.stack([dx.clamp(-0.5, 0.5), dy.clamp(-0.5, 0.5)], dim=-1)
-        pts = pts + torch.where(valid[:, None], offs, 0.0)
+        pts = pts + torch.where(valid[..., None], offs, 0.0)
 
     if k_eff < K:
         pts = torch.nn.functional.pad(pts, (0, 0, 0, K - k_eff))

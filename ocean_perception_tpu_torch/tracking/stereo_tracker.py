@@ -16,6 +16,10 @@ step takes no branch on a device value and needs no host sync. With a
 pyramid ring (``StereoTrackerState.create(..., image_shape=...)``) each
 landmark is re-tracked from the frame it was last seen in (k-ago
 re-tracking, stereo_tracker.cpp:33-88).
+
+A batch of B cameras (the counterpart of ``jax.vmap`` of the JAX step):
+a state with a leading (B,) axis on every field, (B, H, W) images; every
+decision, rank and count is taken per camera.
 """
 
 from __future__ import annotations
@@ -48,31 +52,34 @@ class StereoTrackerParams:
 @dataclasses.dataclass(frozen=True)
 class StereoTrackerState:
     table: TrackTable
-    frame_idx: torch.Tensor      # int32 scalar
+    frame_idx: torch.Tensor      # int32 scalar, ([B,])
     last_kf_frame: torch.Tensor  # int32 scalar
     next_lmk_id: torch.Tensor    # int32 scalar
-    # Past-frame pyramid ring: one (retrack_frames_k + 1, Hl, Wl) tensor per
-    # level, slot 0 = the newest past frame. None = track from prev_left.
+    # Past-frame pyramid ring: one ([B,] retrack_frames_k + 1, Hl, Wl) tensor
+    # per level, slot 0 = the newest past frame. None = track from prev_left.
     ring: Optional[Tuple[torch.Tensor, ...]] = None
 
     @classmethod
     def create(cls, params: StereoTrackerParams, image_shape: Optional[Tuple[int, int]] = None,
-               device=None) -> "StereoTrackerState":
+               device=None, batch: Optional[int] = None) -> "StereoTrackerState":
+        """The initial state; with ``batch``, one for each of B cameras."""
+        lead = () if batch is None else (batch,)
         ring = None
         if image_shape is not None:
             h, w = image_shape
             levels = []
             for _ in range(params.lk.max_level + 1):
-                levels.append(torch.zeros((params.retrack_frames_k + 1, h, w),
+                levels.append(torch.zeros(lead + (params.retrack_frames_k + 1, h, w),
                                           dtype=torch.float32, device=device))
                 h, w = (h + 1) // 2, (w + 1) // 2
             ring = tuple(levels)
 
         def scalar(v):
-            return torch.tensor(v, dtype=torch.int32, device=device)
+            return torch.full(lead, v, dtype=torch.int32, device=device)
 
-        return cls(table=TrackTable.create(params.capacity, device=device), frame_idx=scalar(0),
-                   last_kf_frame=scalar(-(10 ** 6)), next_lmk_id=scalar(0), ring=ring)
+        return cls(table=TrackTable.create(params.capacity, device=device, batch=batch),
+                   frame_idx=scalar(0), last_kf_frame=scalar(-(10 ** 6)), next_lmk_id=scalar(0),
+                   ring=ring)
 
     def replace(self, **changes) -> "StereoTrackerState":
         return dataclasses.replace(self, **changes)
@@ -86,8 +93,8 @@ class StereoTrackerState:
 
 class TrackerOutput(NamedTuple):
     observations: LandmarkObservation
-    is_keyframe: torch.Tensor  # bool scalar
-    n_tracked: torch.Tensor    # landmarks tracked this frame
+    is_keyframe: torch.Tensor  # bool scalar, ([B,])
+    n_tracked: torch.Tensor    # landmarks tracked this frame, ([B,])
 
 
 def device_scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
@@ -98,27 +105,35 @@ def device_scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.full((), v, dtype=dtype, device=device)
 
 
+def _per_camera(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-camera mask ([B,]) shaped to broadcast against a field
+    ([B,] K, ...) camera by camera."""
+    return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
+
+
 def _fill_free_slots(table: TrackTable, det_pts: torch.Tensor, det_valid: torch.Tensor,
                      next_id: torch.Tensor) -> Tuple[TrackTable, torch.Tensor]:
-    """Give the valid detections, in order, the free slots, in slot order."""
+    """Give the valid detections, in order, the free slots, in slot order,
+    camera by camera."""
     K = table.capacity
     alive = table.alive
-    free_order = torch.argsort(alive.int(), stable=True)      # free slots first
-    n_free = K - alive.sum()
-    det_rank = torch.cumsum(det_valid.int(), 0) - 1           # rank among valid detections
+    free_order = torch.argsort(alive.int(), dim=-1, stable=True)  # free slots first
+    n_free = K - alive.sum(dim=-1, keepdim=True)
+    det_rank = torch.cumsum(det_valid.int(), -1) - 1          # rank among valid detections
     take = det_valid & (det_rank < n_free)
     # Detections that find no slot go to a spare slot K, dropped afterwards.
-    target = torch.where(take, free_order[det_rank.clamp(0, K - 1).long()], K)
+    target = torch.where(take, free_order.gather(-1, det_rank.clamp(0, K - 1).long()), K)
+    slot_dim = target.ndim - 1
 
     def scatter(field: torch.Tensor, values) -> torch.Tensor:
-        out = torch.cat([field, field[:1]])
-        if not isinstance(values, torch.Tensor):
-            # Filled on the device: a Python value would be copied there.
-            values = torch.full((), values, dtype=field.dtype, device=field.device)
-        out[target] = values
-        return out[:K]
+        out = torch.cat([field, field.narrow(slot_dim, 0, 1)], dim=slot_dim)
+        index = target.reshape(target.shape + (1,) * (field.ndim - target.ndim))
+        index = index.expand(*target.shape, *field.shape[slot_dim + 1:])
+        # A Python value goes to the kernel as an argument: no copy to the device.
+        out.scatter_(slot_dim, index, values)
+        return out.narrow(slot_dim, 0, K)
 
-    new_ids = (next_id + det_rank).int()
+    new_ids = (next_id[..., None] + det_rank).int()
     table = table.replace(
         ids=scatter(table.ids, torch.where(take, new_ids, 0).int()),
         pixels=scatter(table.pixels, det_pts),
@@ -128,7 +143,7 @@ def _fill_free_slots(table: TrackTable, det_pts: torch.Tensor, det_valid: torch.
         disparities=scatter(table.disparities, -1.0),
         kf_disparities=scatter(table.kf_disparities, -1.0),
     )
-    return table, next_id + take.sum(dtype=torch.int32)
+    return table, next_id + take.sum(dim=-1, dtype=torch.int32)
 
 
 def track_and_triangulate(state: StereoTrackerState, prev_left: torch.Tensor,
@@ -136,7 +151,8 @@ def track_and_triangulate(state: StereoTrackerState, prev_left: torch.Tensor,
                           rig_fx_baseline, params: StereoTrackerParams,
                           force_keyframe=False) -> Tuple[StereoTrackerState, TrackerOutput]:
     """One front-end step, on the images' device. ``rig_fx_baseline`` is
-    fx * baseline (a float or a scalar tensor), for the depth gate."""
+    fx * baseline (a float or a scalar tensor), for the depth gate. A batch:
+    a batched state and (B, H, W) images."""
     dev = cur_left.device
     table = state.table
     alive = table.alive
@@ -154,11 +170,11 @@ def track_and_triangulate(state: StereoTrackerState, prev_left: torch.Tensor,
     keep = alive & (missed <= params.retrack_frames_k)       # KillOffLostLandmarks
     table = table.replace(
         ids=torch.where(keep, table.ids, -1).int(),
-        pixels=torch.where(tracked[:, None], flow.points, table.pixels),
+        pixels=torch.where(tracked[..., None], flow.points, table.pixels),
         missed=torch.where(keep, missed, 0).int(),
         ages=torch.where(keep, table.ages + 1, 0).int(),
     )
-    n_tracked = (tracked & keep).sum(dtype=torch.int32)
+    n_tracked = (tracked & keep).sum(dim=-1, dtype=torch.int32)
 
     # 2. Keyframe decision, a tensor: no branch on a device value.
     is_kf = (device_scalar(force_keyframe, torch.bool, dev)
@@ -169,7 +185,8 @@ def track_and_triangulate(state: StereoTrackerState, prev_left: torch.Tensor,
     det = detect_features(cur_left, params.detector, table.pixels, table.alive)
     kf_table, kf_next_id = _fill_free_slots(table, det.points, det.valid, state.next_lmk_id)
     table = TrackTable(**{
-        f.name: torch.where(is_kf, getattr(kf_table, f.name), getattr(table, f.name))
+        f.name: torch.where(_per_camera(is_kf, getattr(table, f.name)),
+                            getattr(kf_table, f.name), getattr(table, f.name))
         for f in dataclasses.fields(TrackTable)})
     next_id = torch.where(is_kf, kf_next_id, state.next_lmk_id)
 
@@ -184,14 +201,17 @@ def track_and_triangulate(state: StereoTrackerState, prev_left: torch.Tensor,
     # 5. Keyframe snapshot for the VO correspondences.
     table = table.replace(
         disparities=disparities,
-        kf_pixels=torch.where(is_kf, table.pixels, table.kf_pixels),
-        kf_disparities=torch.where(is_kf, disparities, table.kf_disparities),
+        kf_pixels=torch.where(_per_camera(is_kf, table.pixels), table.pixels, table.kf_pixels),
+        kf_disparities=torch.where(_per_camera(is_kf, disparities), disparities,
+                                   table.kf_disparities),
     )
 
     # The current frame becomes ring slot 0 for the next step.
     new_ring = state.ring
     if state.ring is not None:
-        new_ring = tuple(torch.cat([cur[None], lvl[:-1]]) for cur, lvl in zip(cur_pyr, state.ring))
+        nb = cur_left.ndim - 2
+        new_ring = tuple(torch.cat([cur.unsqueeze(nb), lvl.narrow(nb, 0, lvl.shape[nb] - 1)],
+                                   dim=nb) for cur, lvl in zip(cur_pyr, state.ring))
 
     new_state = StereoTrackerState(
         table=table,

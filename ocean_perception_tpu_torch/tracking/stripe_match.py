@@ -33,27 +33,31 @@ class StripeMatcherParams:
 
 
 class StripeMatches(NamedTuple):
-    disparity: torch.Tensor  # (K,) float32; -1 = no match
-    cost: torch.Tensor       # (K,) best normalized SSD
+    disparity: torch.Tensor  # ([B,] K) float32; -1 = no match
+    cost: torch.Tensor       # ([B,] K) best normalized SSD
 
 
 def match_rectified(left: torch.Tensor, right: torch.Tensor, points: torch.Tensor,
                     valid: torch.Tensor, p: StripeMatcherParams = StripeMatcherParams()) -> StripeMatches:
-    H, W = left.shape
+    """(K,) matches of K points (K, 2) of (H, W) images; a batch, (*batch,
+    H, W) images and (*batch, K, 2) points, gives (*batch, K), each camera's
+    points matched in its own images."""
+    H, W = left.shape[-2], left.shape[-1]
     tc, tr = p.templ_cols, p.templ_rows
     rx, ry = tc // 2, tr // 2
     stripe_h = tr + 2
     stripe_w = p.max_disp + tc
     n_offsets = p.max_disp + 1
 
-    x = torch.round(points[:, 0]).long()
-    y = torch.round(points[:, 1]).long()
+    x = torch.round(points[..., 0]).long()
+    y = torch.round(points[..., 1]).long()
     ty = (y - ry).clamp(0, H - tr)
     tx = (x - rx).clamp(0, W - tc)
-    templ = extract_windows(left, ty, tx, tr, size_x=tc)              # (K, tr, tc)
+    templ = extract_windows(left, ty, tx, tr, size_x=tc).reshape(-1, tr, tc)
     sy = (y - ry - 1).clamp(0, H - stripe_h)
     sx = (x - p.max_disp - rx).clamp(0, W - stripe_w)
-    stripe = extract_windows(right, sy, sx, stripe_h, size_x=stripe_w)  # (K, sh, sw)
+    stripe = extract_windows(right, sy, sx, stripe_h, size_x=stripe_w)
+    stripe = stripe.reshape(-1, stripe_h, stripe_w)
 
     # SQDIFF_NORMED = (sum t^2 + sum s^2 - 2 sum t*s) / sqrt(sum t^2 * sum s^2).
     t2 = (templ * templ).sum(dim=(1, 2))[:, None]
@@ -85,6 +89,8 @@ def match_rectified(left: torch.Tensor, right: torch.Tensor, points: torch.Tenso
         off = torch.where(big, 0.5 * (c0 - c2) / torch.where(big, denom, 1.0), 0.0)
         best_u = best_u + off.clamp(-0.5, 0.5)
 
-    disp = tx.float() - (sx.float() + best_u)
-    ok = (best_cost < p.max_matching_cost) & (disp >= 0.0) & valid
-    return StripeMatches(disparity=torch.where(ok, disp, -1.0), cost=best_cost)
+    disp = tx.reshape(-1).float() - (sx.reshape(-1).float() + best_u)
+    ok = (best_cost < p.max_matching_cost) & (disp >= 0.0) & valid.reshape(-1)
+    shape = points.shape[:-1]
+    return StripeMatches(disparity=torch.where(ok, disp, -1.0).reshape(shape),
+                         cost=best_cost.reshape(shape))

@@ -4,7 +4,8 @@
 K slots with validity given by the id (-1 = free slot). Each slot carries the
 landmark id, its current pixel and disparity, its pixel and disparity at the
 last keyframe, and bookkeeping ages (reference: StereoTracker's live_tracks_,
-stereo_tracker.hpp:26-104).
+stereo_tracker.hpp:26-104). A table of B cameras has a leading (B,) axis on
+every field.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ class LandmarkObservation(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TrackTable:
-    ids: torch.Tensor             # (K,) int32 landmark ids, -1 = free slot
+    ids: torch.Tensor             # ([B,] K) int32 landmark ids, -1 = free slot
     pixels: torch.Tensor          # (K, 2) current position
     disparities: torch.Tensor     # (K,) current disparity (-1 = none)
     kf_pixels: torch.Tensor       # (K, 2) position at last keyframe
@@ -37,9 +38,12 @@ class TrackTable:
     missed: torch.Tensor          # (K,) int32 consecutive frames not tracked
 
     @classmethod
-    def create(cls, capacity: int, device=None) -> "TrackTable":
+    def create(cls, capacity: int, device=None, batch: int | None = None) -> "TrackTable":
+        """An empty table; with ``batch``, one for each of B cameras."""
+        lead = () if batch is None else (batch,)
+
         def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=device)
+            return torch.full(lead + shape, value, dtype=dtype, device=device)
 
         return cls(
             ids=full((capacity,), INVALID_ID, torch.int32),
@@ -59,7 +63,7 @@ class TrackTable:
 
     @property
     def capacity(self) -> int:
-        return self.ids.shape[0]
+        return self.ids.shape[-1]
 
     @property
     def alive(self) -> torch.Tensor:

@@ -94,9 +94,10 @@ def test_cpu_path_launches_no_kernel(extra):
     assert set(cuda.LAUNCHES.values()) == {0}
 
 
-def _frontend_setup(device, H=48, W=64, K=16):
+def _frontend_setup(device, H=48, W=64, K=16, seed=43, batch=None):
     """A small full_frontend_step configuration and a 3-frame sequence that
-    moves 2 px a frame, with an 8 px stereo disparity."""
+    moves 2 px a frame, with an 8 px stereo disparity; with ``batch``, the
+    state of that many cameras."""
     from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
     from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
     from ocean_perception_tpu_torch.mesher.object_mesher import ObjectMesherDeviceParams
@@ -106,7 +107,7 @@ def _frontend_setup(device, H=48, W=64, K=16):
                                                                     StereoTrackerState)
     from ocean_perception_tpu_torch.tracking.stripe_match import StripeMatcherParams
 
-    rng = np.random.default_rng(43)
+    rng = np.random.default_rng(seed)
     canvas = rng.random((H, W + 32)).astype(np.float32)
     frames = [(torch.from_numpy(np.repeat(canvas[:, 2 * i: 2 * i + W, None], 3, 2)).to(device),
                torch.from_numpy(np.repeat(canvas[:, 2 * i + 8: 2 * i + 8 + W, None], 3, 2)).to(device))
@@ -118,8 +119,19 @@ def _frontend_setup(device, H=48, W=64, K=16):
     config = PerceptionConfig(max_disp=16, internal_scale=1, run_enhance=False, chunks=4)
     return dict(device=device, frames=frames, rig=StereoCamera.create(cam, cam, 0.1), config=config,
                 params=ObjectMesherDeviceParams(tracker=tracker, neighbor_radius_px=30.0),
-                state=StereoTrackerState.create(tracker, image_shape=(H, W), device=device),
-                graph=LandmarkGraph.create(K, device=device))
+                state=StereoTrackerState.create(tracker, image_shape=(H, W), device=device,
+                                                batch=batch),
+                graph=LandmarkGraph.create(K, device=device, batch=batch))
+
+
+def _fleet_setup(device, cameras=3):
+    """_frontend_setup's configuration on cameras of unlike scenes (their
+    own canvases), one frame of each in every batched frame."""
+    setups = [_frontend_setup(device, seed=43 + b) for b in range(cameras)]
+    fleet = _frontend_setup(device, batch=cameras)
+    fleet["frames"] = [tuple(torch.stack(side) for side in zip(*frame))
+                       for frame in zip(*(s["frames"] for s in setups))]
+    return fleet, setups
 
 
 def _run_frontend(setup):
@@ -618,3 +630,75 @@ def test_batched_engines_on_the_card(cuda_device, engine, extra):
         assert torch.equal(got.left[b], tapi.estimate_disparity(l[b], r[b], **kw).left), b
     cpu = tapi.estimate_disparity(l.cpu(), r.cpu(), **kw)
     assert ((got.left.cpu() - cpu.left).abs() <= 1e-3).float().mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_batched_lk_track_matches_plain(cuda_device):
+    """lk_track on 3 cameras in one launch a direction (unlike rings, each
+    camera its own points, frames and dead slots: NaN points in 0, 60 and
+    150 of its 200 slots), bit-identical to its twin on the batch and to
+    one launch a camera."""
+    rings, curs = [], []
+    for b in range(3):
+        r, c = _lk_levels(cuda_device, np.random.default_rng(60 + b))
+        rings.append(r)
+        curs.append(c)
+    rings = [torch.stack(lv) for lv in zip(*rings)]
+    curs = [torch.stack(lv) for lv in zip(*curs)]
+    rng = np.random.default_rng(63)
+    K = 200
+    pts = torch.stack([_lk_points(cuda_device, rng, K) for _ in range(3)])
+    for b, dead in enumerate((0, 60, 150)):
+        pts[b, K - dead:] = float("nan")
+    src = torch.from_numpy(rng.integers(0, 3, (3, K)).astype(np.int32)).to(cuda_device)
+    zero = torch.zeros_like(src)
+    kw = dict(wins=[21, 21, 15, 7], slack=4, pad=12, min_eig_threshold=1.5e-9, max_iters=30,
+              eps=0.01)
+    for tmpl, srch, st, ss, init in ((rings, curs, src, zero, pts + 1.25),
+                                     (curs, rings, zero, src, pts)):
+        cuda.reset_launches()
+        got = tlk.lk_track(tmpl, srch, pts, init, st, ss, **kw)
+        assert cuda.LAUNCHES["lk_track"] == 1
+        want = tlk.lk_track_plain(tmpl, srch, pts, init, st, ss, **kw)
+        assert torch.equal(got[0].nan_to_num(-1e30), want[0].nan_to_num(-1e30))
+        assert torch.equal(got[1], want[1])
+        for b in range(3):
+            one = tlk.lk_track([t[b] for t in tmpl], [s[b] for s in srch], pts[b], init[b],
+                               st[b], ss[b], **kw)
+            assert torch.equal(got[0][b].nan_to_num(-1e30), one[0].nan_to_num(-1e30)), b
+            assert torch.equal(got[1][b], one[1]), b
+        assert got[1].float().mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_batched_frontend_on_the_card(cuda_device):
+    """full_frontend_step on 3 cameras of unlike scenes: lk_track launches
+    twice a call, K1 and pm_match once; each camera's labels, slot ids and
+    alive set equal its one-camera call's on the card, its pixels within
+    1e-3 px; no host sync."""
+    from ocean_perception_tpu_torch.models.perception import full_frontend_step
+
+    fleet, setups = _fleet_setup(cuda_device)
+    cuda.reset_launches()
+    outs = _run_frontend(fleet)
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {"cost_volume": 3, "pm_match": 3,
+                                                             "lk_track": 6}
+    for b, setup in enumerate(setups):
+        for got, one in zip(outs, _run_frontend(setup)):
+            for name in ("labels", "alive"):
+                assert torch.equal(getattr(got.mesher, name)[b], getattr(one.mesher, name)), b
+            assert torch.equal(got.tracker_state.table.ids[b], one.tracker_state.table.ids), b
+            assert torch.allclose(got.tracker_state.table.pixels[b],
+                                  one.tracker_state.table.pixels, atol=1e-3), b
+    assert int(outs[-1].mesher.alive.sum(-1).min()) >= 4
+    out = outs[-1]
+    left, right = fleet["frames"][-1]
+    prev = out.tracker_state.ring[0][:, 0]
+
+    def step():
+        full_frontend_step(out.tracker_state, out.graph, prev, left, right, fleet["rig"],
+                           fleet["config"], fleet["params"], device=cuda_device)
+
+    step()
+    torch.cuda.synchronize()
+    assert sync_sites(step) == []
