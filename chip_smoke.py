@@ -14,7 +14,13 @@ disparity and motion, in phases:
    card, at the shapes the 720p path gives them (bit-identical; the match in
    bf16 and float32, on the path's seed and on an adversarial seed whose
    lookups tie and clamp and whose mask fires), with their times, bounds
-   and the match's chain of dependent round trips (below);
+   and the match's chain of dependent round trips (below); then the
+   Sea-thru fits' LM kernels, ``lm_solve_small`` (the damped normal
+   equations and their solve, a warp a system) and ``lm_row_sum`` (the error
+   sums), against their twins on the first launch of each shape of one
+   perception step (bit-identical), with their times, bounds and the time of
+   one PyTorch call of the same function (``torch.linalg.solve_ex`` on the
+   damped systems, ``torch.sum``);
 4. ``perception_step`` end to end: three runs of 8 frames, checking the
    kernels' launch counts, finite outputs and the disparity against the
    scene's truth; its host syncs a frame (there must be none); then the
@@ -88,13 +94,42 @@ disparity and motion, in phases:
    and by graph, fps per GPU beside the one-camera frontend's graph frame
    at the same point, CUDA kernels a call (profiler; graph nodes), peak
    memory, and the call times of a call and of its dense and mesher
-   halves, at one camera and at N_CAMERAS.
+   halves, at one camera and at N_CAMERAS. Each camera's enhanced image is
+   held to its one-camera call's at every timed call within the enhance
+   tolerance (below; the run prints where it is bit-identical), and the LM
+   kernels are checked and timed at the fleet's shapes as in phase 3;
+14. the farm perception node (``fabric/nodes/farm_perception_node.py``)
+   over an ``InProcessBus``: (a) built by ``from_config`` from the shipped
+   ``config/nodes/FarmPerceptionNode.yaml`` and ``config/shared/Farmsim.yaml``
+   (4 cameras of 672x376, PatchMatch, ``internal_scale`` 4, ``mesher_scale``
+   2), NODE_STEPS fleet frames of uint8 mono stereo messages, each camera
+   its own phase of the canvas: every frame stepped, no step failed, every
+   camera meshed, and each mesh received equal bit for bit to a direct loop
+   of ``multi_camera_frontend_step`` + ``build_meshes`` on the same frames;
+   (b) the same at phase 13's farm point (1280x720, the shipped mesher
+   params and ``mesher_scale``): NODE_TIMED timed fleet steps, from publish
+   to the step's last mesh, as fleet steps/s and camera-fps, with the
+   in-process publish and the node thread's time in its steps apart,
+   beside the direct calls on the same frames on the main thread and on a
+   thread of their own (their ``build_meshes`` apart): the node's own cost
+   is its wall time less the publish and the threaded direct calls; then
+   camera 3 falls silent for DEAD_STEPS
+   steps: the others are still meshed and each step counts a stale fill;
+15. the object mesher node (``fabric/nodes/object_mesher_node.py``) built
+   by ``from_config`` from the shipped ``config/nodes/ObjectMesherNode.yaml``
+   on a 1280x720 rig, so its ``mesher_input_height`` downscale runs:
+   MESHER_FRAMES raw float frames, the meshes equal bit for bit to a direct
+   ``ObjectMesher`` on the downscaled frames, then the same frames through
+   the shared-memory rings (``fabric/shm_ring.py``), the same meshes;
+   frames/s.
 
 The enhanced image of a batched camera is held to the one-camera step's as
 the port's CPU tests hold it to the reference: the median and the 99.9th
 percentile of |batched - single| at most twice those of the change the
 one-camera enhancement shows when its input moves by one ulp (its LM fits
-are ill-conditioned; a batched solve may round differently).
+are ill-conditioned). The port computes a camera's fits and filters in an
+order that does not depend on the batch, so the images are expected to be
+bit-identical; the tolerance is what the check holds.
 
 A kernel's times, at each call shape of its path: its device time two ways,
 ``torch.profiler`` over 20 calls (``profiler_ms``; "not measured" where the
@@ -122,11 +157,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -136,12 +174,22 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from ocean_perception_tpu_torch.config.bindings import load_mesher_params, load_rig
+from ocean_perception_tpu_torch.config.yaml_parser import YamlParser
 from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
+from ocean_perception_tpu_torch.fabric import shm_ring
+from ocean_perception_tpu_torch.fabric.messages import (ImageMessage, ShmImageHeader,
+                                                        StereoImageMessage)
+from ocean_perception_tpu_torch.fabric.nodes import farm_perception_node as fpn
+from ocean_perception_tpu_torch.fabric.nodes import object_mesher_node as omn
+from ocean_perception_tpu_torch.fabric.pubsub import InProcessBus
+from ocean_perception_tpu_torch.imaging.enhance import EnhanceParams, enhance_underwater
 from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
-from ocean_perception_tpu_torch.mesher.object_mesher import ObjectMesherDeviceParams
+from ocean_perception_tpu_torch.mesher.object_mesher import (ObjectMesher, ObjectMesherDeviceParams,
+                                                           build_meshes)
 from ocean_perception_tpu_torch.models.perception import (PerceptionConfig, full_frontend_step,
                                                           perception_step)
-from ocean_perception_tpu_torch.ops import cuda
+from ocean_perception_tpu_torch.ops import cuda, lm
 from ocean_perception_tpu_torch.ops.image import (gradient_magnitude, image_pyramid, pyr_down,
                                                   resize, to_grayscale)
 from ocean_perception_tpu_torch.ops.windows import fold_rings
@@ -164,9 +212,15 @@ N_TIMED = 20
 N_RUNS = 3  # timed runs of N_FRAMES frames of each perception layout
 # Host syncs a full_frontend_step frame keeps (PERF.md, section 5).
 FRONTEND_SYNCS = 0
+# Launches of the Sea-thru LM kernels an enhanced frame (a batch of cameras
+# too): a step each iteration of the two fits, and the error sums, two at
+# each fit's start (lambda's diagonal and the start error) and one an
+# iteration.
+_ITERS = EnhanceParams().back_opt_iters + EnhanceParams().beta_opt_iters
+PER_ENHANCE = {"lm_solve_small": _ITERS, "lm_row_sum": _ITERS + 4}
 # Launches of each kernel per frame of each path.
-PER_FRAME = {"cost_volume": 1, "pm_match": 1}
-PER_STRIP_FRAME = {"build_volumes": 1, "pm_match_strip": 1}
+PER_FRAME = {"cost_volume": 1, "pm_match": 1, **PER_ENHANCE}
+PER_STRIP_FRAME = {"build_volumes": 1, "pm_match_strip": 1, **PER_ENHANCE}
 PER_FRONTEND_FRAME = dict(PER_FRAME, lk_track=2)  # forward and backward, 4 levels each
 N_CAMERAS = 4  # phase 8's, 12's and 13's batch
 FLEET_PHASE = 9  # phase 13: camera b's frame i is frame i + FLEET_PHASE * b of the sequence
@@ -184,6 +238,13 @@ SOURCES = {
     "lk_track": ("ocean_perception_tpu_torch/csrc/lk.cu",
                  "ocean_perception_tpu/ops/pallas/lk_prep.py:291 and "
                  "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
+    # No TPU kernel: the JAX package leaves its LM's normal equations, solve
+    # and sums to XLA.
+    "lm_solve_small": ("ocean_perception_tpu_torch/csrc/lm_solve.cu",
+                       "none (XLA's J.T @ J and jnp.linalg.solve, "
+                       "ocean_perception_tpu/ops/lm.py:84-89)"),
+    "lm_row_sum": ("ocean_perception_tpu_torch/csrc/lm_solve.cu",
+                   "none (XLA's jnp.sum, ocean_perception_tpu/ops/lm.py:44)"),
 }
 # H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 rate outside
 # the tensor cores.
@@ -254,15 +315,17 @@ def make_inputs(canvas: np.ndarray, i: int = 0) -> tuple[np.ndarray, np.ndarray]
     return left_rgb, right_rgb
 
 
-def make_mono_u8(canvas: np.ndarray, i: int) -> tuple[np.ndarray, np.ndarray]:
+def make_mono_u8(canvas: np.ndarray, i: int, shape=None) -> tuple[np.ndarray, np.ndarray]:
     """Frame i of the sequence as a farm camera sends it, uint8 mono: the
-    canvas of make_inputs, scaled to [0.05, 0.95] and quantized."""
+    canvas of make_inputs, scaled to [0.05, 0.95] and quantized; ``shape``
+    (h, w) crops a smaller frame (default H, W)."""
+    h, w = shape or (H, W)
     x0 = 100 + SHIFT * i
 
     def u8(a):
-        return (np.clip(a * 0.9 + 0.05, 0, 1) * 255).astype(np.uint8)
+        return (np.clip(a[:h] * 0.9 + 0.05, 0, 1) * 255).astype(np.uint8)
 
-    return u8(canvas[:, x0 : x0 + W]), u8(canvas[:, x0 + TRUE_DISP : x0 + TRUE_DISP + W])
+    return u8(canvas[:, x0 : x0 + w]), u8(canvas[:, x0 + TRUE_DISP : x0 + TRUE_DISP + w])
 
 
 def call_ms(fn, n: int = N_TIMED) -> float:
@@ -282,7 +345,8 @@ def call_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
-KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|lk_track)_kernel")
+KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|lk_track|lm_solve_small|lm_row_sum)"
+                       r"_kernel")
 
 
 def launch_name(kernel: str) -> str | None:
@@ -1466,6 +1530,106 @@ def peak_bytes(fn) -> tuple[int, int]:
     return peak, peak - before
 
 
+def record_lm_calls(fn) -> dict:
+    """Run fn() and return the arguments of every lm_solve_small and
+    lm_row_sum launch it made, cloned, by launch name."""
+    calls = {"lm_solve_small": [], "lm_row_sum": []}
+    wrappers = {name: getattr(cuda, name) for name in calls}
+
+    def spy(name):
+        def launch(*args):
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return wrappers[name](*args)
+        return launch
+
+    try:
+        for name in calls:
+            setattr(cuda, name, spy(name))
+        fn()
+    finally:
+        for name, wrapper in wrappers.items():
+            setattr(cuda, name, wrapper)
+    return calls
+
+
+def lm_bound(name: str, args: tuple) -> dict:
+    """Bound of one launch: its inputs read and outputs written once, and
+    its operations (a multiply and an add each counted): for lm_solve_small
+    the P(P+1)/2 + P dot products of N terms, the damping, the elimination
+    and the back substitution; for lm_row_sum N - 1 adds a row."""
+    if name == "lm_row_sum":
+        (x,) = args
+        rows, n = x.numel() // x.shape[-1], x.shape[-1]
+        return bound(4 * (x.numel() + rows), rows * (n - 1))
+    J, r, lam, _ = args
+    N, P = J.shape[-2], J.shape[-1]
+    M = J.numel() // (N * P)
+    ops = (2 * N * (P * (P + 1) // 2 + P) + 2 * P * P
+           + sum((P - k - 1) * (3 + 2 * (P - k - 1)) for k in range(P)) + P * P)
+    return bound(4 * (J.numel() + r.numel() + lam.numel() + M * P), M * ops)
+
+
+def library_ms(fn, n: int = N_TIMED) -> float | None:
+    """Device time of one library call in ms: ``torch.profiler`` over n
+    calls of fn(), the device time of every kernel, copy and set the window
+    ran, over n; None where it recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / n if total_us > 0 else None
+
+
+def phase_lm_kernels(calls: dict, tag: str = "") -> dict:
+    """lm_solve_small and lm_row_sum against their twins on the first
+    launch of each shape one enhanced step made (bit-identical), with their
+    times, bounds and the time of one PyTorch call of the same function on
+    the same inputs (library_ms): torch.linalg.solve_ex on the damped systems
+    (the solve alone, without the normal equations), torch.sum over the rows."""
+    rows = {}
+    for name, launches in calls.items():
+        first = {}
+        for args in launches:
+            first.setdefault(tuple(args[0].shape), args)
+        measured, bounds, lib, errs = [], [], [], []
+        for shape, args in first.items():
+            kernel = getattr(cuda, name)
+            if name == "lm_solve_small":
+                J, r, lam, marquardt = args
+                plain = lambda J=J, r=r, lam=lam, m=marquardt: lm.lm_step_plain(J, r, lam, m)
+                A, b = lm.damped_system(J, r, lam, marquardt)
+                library = lambda A=A, b=b: torch.linalg.solve_ex(A, b)
+            else:
+                plain = lambda x=args[0]: lm.tree_sum_plain(x)
+                library = lambda x=args[0]: torch.sum(x, dim=-1)
+            got, want = kernel(*args), plain()
+            require_equal(f"{name}{tag} {shape}", got, want)
+            errs.append(max_abs(got, want))
+            t = measure(name, lambda k=kernel, a=args: k(*a), plain, 5)
+            t["library_ms"] = library_ms(library)
+            bd = lm_bound(name, args)
+            measured.append(t)
+            bounds.append(bd)
+            lib.append(t["library_ms"])
+            print(f"[{name}{tag}] {shape}: {times_line(t)}; one PyTorch call "
+                  f"{fmt_ms(t['library_ms'])} (profiler); bound {1e3 * bd['bound_ms']:.4f} us "
+                  f"({bd['bound_by']}); bit-identical to its twin")
+        rows[name] = dict(max_abs_err=max(errs), **summarize(measured),
+                          bound_ms=statistics.mean(bd["bound_ms"] for bd in bounds),
+                          bound_by=bounds[0]["bound_by"],
+                          library_ms=None if None in lib else statistics.mean(lib),
+                          shapes=[list(s) for s in first])
+        print(f"[{name}{tag}] {len(launches)} launches a step over {len(first)} shapes: "
+              f"device {fmt_ms(rows[name]['device_ms'])} ({rows[name]['device_method']}, the "
+              f"mean over the shapes); one PyTorch call {fmt_ms(rows[name]['library_ms'])}")
+    return rows
+
+
 def require_enhance_close(tag: str, batched, single, nudged) -> str:
     """The batched enhanced image within the enhance tolerance of the
     one-camera one (see the module docstring); nudged is the one-camera
@@ -1486,8 +1650,6 @@ def phase_batched(canvas, rig, config, rows: dict, l2: dict) -> dict:
     """perception_step on N_CAMERAS cameras in one call (see the module
     docstring, phase 12); returns the batched kernels' rows, each with its
     launches on the batched path."""
-    from ocean_perception_tpu_torch.imaging.enhance import enhance_underwater
-
     dev = torch.device("cuda", 0)
     B = N_CAMERAS
     pairs = [make_inputs(canvas, i) for i in range(B)]
@@ -1521,7 +1683,7 @@ def phase_batched(canvas, rig, config, rows: dict, l2: dict) -> dict:
         launches = dict(cuda.LAUNCHES)
         require_launches(f"batched {tag}", launches, per_call, 1)
         for k, n in launches.items():
-            if n:
+            if n and k in krows:
                 krows[k]["launches"] = n
         if out.disparity.shape != (B, H, W) or out.enhanced_left.shape != (B, H, W, 3):
             raise AssertionError(f"batched {tag}: bad output shapes")
@@ -1620,6 +1782,9 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
     calls = record_lk_calls(lambda: step(4))
     torch.cuda.synchronize()
     lk_row = phase_lk_kernels(calls, f"fleet lk B={B}")["lk_track"]
+    lm_rows = phase_lm_kernels(record_lm_calls(lambda: perception_step(
+        prepare_frames(frames[4][0], dev), prepare_frames(frames[4][1], dev), rig, config, dev)),
+        f" fleet B={B}")
     one = rows["lk_track"]
     print(f"[fleet lk] lk_track, {B} cameras in one launch a direction: device "
           f"{lk_row['device_ms'] * 1e3:.3f} us ({lk_row['device_method']}; graph replay "
@@ -1704,6 +1869,11 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
         enh_max = [0.0, 0.0]  # max |enhanced| over the calls, batched and one camera
         for k, (out, o1) in enumerate(zip(outs, singles)):
             tag = f"fleet camera {b} call {k}"
+            left_f = prepare_frames(frames[5 + k][0][b][None], dev)[0]
+            nudged, _ = enhance_underwater(left_f * float(np.float32(1 + 2.0**-23)),
+                                           o1.perception.depth, config.enhance)
+            require_enhance_close(f"{tag} enhanced image", out.perception.enhanced_left[b],
+                                  o1.perception.enhanced_left, nudged)
             require_equal(f"{tag} disparity map vs one camera's", out.perception.disparity[b],
                           o1.perception.disparity)
             require_equal(f"{tag} depth vs one camera's", out.perception.depth[b],
@@ -1729,7 +1899,8 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
                      f"call by calls): disparity map, depth, labels, slot ids and alive set "
                      f"equal in {N_FRAMES} of {N_FRAMES} calls, pixels bit-identical in "
                      f"{exact_px}, stripe disparities bit-identical in {exact_disp}; enhanced "
-                     f"image bit-identical in {exact_enh}, max |enhanced| {enh_max[0]:.6e} "
+                     f"image within the enhance tolerance in {N_FRAMES} of {N_FRAMES} calls, "
+                     f"bit-identical in {exact_enh}, max |enhanced| {enh_max[0]:.6e} "
                      f"batched, {enh_max[1]:.6e} one camera")
     for line in lines:
         print(f"[fleet] {line}")
@@ -1786,7 +1957,285 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
     }
     print("[fleet stages] by calls: " + "; ".join(
         f"{name} {call_ms(fn, 5):.3f} ms" for name, fn in stages.items()))
-    return dict(lk_row, launches=launches["lk_track"] // N_FRAMES)
+    return (dict(lk_row, launches=launches["lk_track"] // N_FRAMES),
+            {k: dict(row, launches=launches[k] // N_FRAMES) for k, row in lm_rows.items()})
+
+
+FARM_YAML = "config/nodes/FarmPerceptionNode.yaml"
+MESHER_YAML = "config/nodes/ObjectMesherNode.yaml"
+FARMSIM_YAML = "config/shared/Farmsim.yaml"
+NODE_STEPS = 12  # fleet frames of phase 14 (a): edges join the graph at 7 observations
+NODE_TIMED = 8   # phase 14 (b)'s timed fleet steps, after NODE_WARMUP
+NODE_WARMUP = 2
+DEAD_STEPS = 3   # phase 14 (b): fleet steps with camera 3 silent
+MESHER_FRAMES = 12  # phase 15
+
+
+def u8_stereo(ts: int, cam: int, left: np.ndarray, right: np.ndarray) -> StereoImageMessage:
+    """A uint8 mono stereo frame as a farm camera publishes it."""
+    h, w = left.shape
+    return StereoImageMessage(ts, cam, ImageMessage(ts, w, h, 1, "u8", left.tobytes()),
+                              ImageMessage(ts, w, h, 1, "u8", right.tobytes()))
+
+
+def mesh_sink(bus, channels: list) -> dict:
+    """Every MeshMessage of each channel, in order."""
+    got = {c: [] for c in channels}
+    for c in channels:
+        bus.subscribe(c, lambda _c, m, c=c: got[c].append(m))
+    return got
+
+
+def direct_fleet(frames, rig, config, params, mesher_scale, vertex_min_obs, disparity_scale,
+                 dev, live=None):
+    """The farm node's work without the node: multi_camera_frontend_step on
+    the stacked uint8 frames, then build_meshes of each live camera; returns
+    each camera's (timestamp, vertices, triangles) of the meshes with
+    triangles, and the seconds of each step and of its Delaunay."""
+    B = len(frames[0][0])
+    s = mesher_scale
+    H_, W_ = frames[0][0][0].shape
+    state, graph = create_fleet_frontend_state(B, params, image_shape=(H_ // s, W_ // s),
+                                               device=dev)
+    mesher_rig = rig.rescale(1.0 / s) if s > 1 else rig
+    prev, meshes, step_s, delaunay_s = None, [[] for _ in range(B)], [], []
+    for k, (lefts, rights) in enumerate(frames):
+        t0 = time.perf_counter()
+        bl = torch.from_numpy(np.stack(lefts)).to(dev)
+        br = torch.from_numpy(np.stack(rights)).to(dev)
+        if prev is None:
+            prev = bl.float() / torch.full((), 255.0, device=dev)
+            for _ in range(s.bit_length() - 1):
+                prev = pyr_down(prev)
+        out, prev = multi_camera_frontend_step(state, graph, prev, bl, br, rig, config, params,
+                                               mesher_scale=s, device=dev)
+        state, graph = out.tracker_state, out.graph
+        host = type(out.mesher)(*(t.cpu() for t in out.mesher))
+        t1 = time.perf_counter()
+        for b in range(B):
+            if live is not None and not live(k, b):
+                continue
+            mesh = build_meshes(type(host)(*(t[b] for t in host)), mesher_rig, disparity_scale,
+                                vertex_min_obs)
+            if mesh.num_triangles > 0:
+                meshes[b].append((k + 1, mesh.vertices, mesh.triangles))
+        t2 = time.perf_counter()
+        step_s.append(t2 - t0)
+        delaunay_s.append(t2 - t1)
+    return meshes, step_s, delaunay_s
+
+
+def require_same_meshes(tag: str, got: list, want: list) -> None:
+    """Meshes received (MeshMessages) equal to the direct run's, bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} meshes received, {len(want)} from the direct "
+                             f"calls")
+    for m, (ts, verts, tris) in zip(got, want):
+        if m.timestamp != ts or not np.array_equal(m.vertices, verts) \
+                or not np.array_equal(m.triangles, tris):
+            raise AssertionError(f"{tag}: the mesh of frame {ts} differs from the direct calls'")
+
+
+def phase_farm_node(canvas, dev) -> None:
+    """The farm perception node on the card over an InProcessBus (see the
+    module docstring, phase 14): (a) the shipped deployment, its meshes
+    against the direct calls bit for bit; (b) the farm point at full width,
+    timed against the direct calls, then a dead camera."""
+    B = N_CAMERAS
+    # (a) config/nodes/FarmPerceptionNode.yaml on the Farmsim rig.
+    bus = InProcessBus()
+    node = fpn.from_config(bus, FARM_YAML, FARMSIM_YAML, device=dev)
+    h, w = int(node.rig.left.height), int(node.rig.left.width)
+    chans = [f"farm/mesh/cam{b}" for b in range(B)]
+    got = mesh_sink(bus, chans)
+    frames = [tuple(zip(*[make_mono_u8(canvas, k + FLEET_PHASE * b, (h, w)) for b in range(B)]))
+              for k in range(NODE_STEPS)]
+    try:
+        for k, (lefts, rights) in enumerate(frames):
+            for b in range(B):
+                bus.publish(f"sensors/stereo/cam{b}", u8_stereo(k + 1, b, lefts[b], rights[b]))
+            node.wait_steps(k + 1, 120.0)
+    finally:
+        node.close()
+    counts = (node.fleet_steps, node.frames_in, node.step_failures, node.stale_fills,
+              node.rejected_frames)
+    if counts != (NODE_STEPS, B * NODE_STEPS, 0, 0, 0):
+        raise AssertionError(f"farm node (shipped): fleet steps, frames in, failures, stale "
+                             f"fills, rejected {counts}; {NODE_STEPS} steps of {B} cameras sent")
+    want, _, _ = direct_fleet(frames, node.rig, node.config, node.mesher_params,
+                              node.mesher_scale, node.vertex_min_obs, node.disparity_scale, dev)
+    for b, c in enumerate(chans):
+        require_same_meshes(f"farm node (shipped) camera {b}", got[c], want[b])
+        if not got[c]:
+            raise AssertionError(f"farm node (shipped): camera {b} was never meshed")
+    print(f"[farm node] shipped deployment ({FARM_YAML}, {FARMSIM_YAML}: {B} cameras of "
+          f"{w}x{h} uint8 mono, internal_scale {node.config.internal_scale}, mesher_scale "
+          f"{node.mesher_scale}): {NODE_STEPS} fleet steps of {NODE_STEPS} published; meshes a "
+          f"camera {[len(got[c]) for c in chans]} (the first at frame "
+          f"{[got[c][0].timestamp for c in chans]}), each equal bit for bit to "
+          f"multi_camera_frontend_step + build_meshes on the same frames")
+
+    # (b) The farm point at full width: 1280x720, internal_scale 4, the
+    # shipped mesher params and mesher_scale 2, no enhanced tap.
+    parser = YamlParser(node_path=FARM_YAML)
+    params = load_mesher_params(parser).device
+    cam = PinholeCamera.create(700.0, 700.0, W / 2, H / 2, H, W)
+    rig = StereoCamera.create(cam, cam, baseline=0.12)
+    config = PerceptionConfig(engine="patchmatch", max_disp=MAX_DISP, internal_scale=FARM_SCALE)
+    scale = int(parser.get("mesher_scale"))
+    bus = InProcessBus()
+    node = fpn.FarmPerceptionNode(bus, rig, n_cameras=B, perception_config=config,
+                                  mesher_params=params, mesher_scale=scale, device=dev)
+    got = mesh_sink(bus, chans)
+    n = NODE_WARMUP + NODE_TIMED + DEAD_STEPS
+    frames = [tuple(zip(*[make_mono_u8(canvas, k + FLEET_PHASE * b) for b in range(B)]))
+              for k in range(n)]
+    walls, busy, pub = [], [], []
+    # The interpreter's garbage collections during the timed steps, on any
+    # thread: (start, seconds).
+    collections, gc_start = [], [0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            collections.append((gc_start[0], time.perf_counter() - gc_start[0]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        for k, (lefts, rights) in enumerate(frames):
+            dead = k >= NODE_WARMUP + NODE_TIMED
+            busy.append(node.busy_seconds)
+            if k == NODE_WARMUP:
+                window = [time.perf_counter()]
+            if k == NODE_WARMUP + NODE_TIMED:
+                window.append(time.perf_counter())
+            t0 = time.perf_counter()
+            for b in range(B - 1 if dead else B):
+                bus.publish(f"sensors/stereo/cam{b}", u8_stereo(k + 1, b, lefts[b], rights[b]))
+            pub.append(time.perf_counter() - t0)
+            node.wait_steps(k + 1, 120.0)
+            walls.append(time.perf_counter() - t0)
+            busy[-1] = node.busy_seconds - busy[-1]
+    finally:
+        gc.callbacks.remove(on_gc)
+        node.close()
+    gc_ms = 1e3 * sum(t for start, t in collections if window[0] <= start < window[1]) / NODE_TIMED
+    counts = (node.fleet_steps, node.step_failures, node.stale_fills, node.rejected_frames)
+    if counts != (n, 0, DEAD_STEPS, 0):
+        raise AssertionError(f"farm node (720p): fleet steps, failures, stale fills, rejected "
+                             f"{counts}; {n} steps sent, camera {B - 1} silent in the last "
+                             f"{DEAD_STEPS}")
+    live = lambda k, b: not (k >= NODE_WARMUP + NODE_TIMED and b == B - 1)
+    want, step_s, delaunay_s = direct_fleet(frames, rig, config, params, scale, 3, 1.0, dev, live)
+    # The same direct calls on a thread of their own, as the node runs them.
+    threaded = {}
+    worker = threading.Thread(target=lambda: threaded.update(out=direct_fleet(
+        frames, rig, config, params, scale, 3, 1.0, dev, live)))
+    worker.start()
+    worker.join()
+    if "out" not in threaded:
+        raise AssertionError("farm node (720p): the direct calls failed on a thread")
+    for b, c in enumerate(chans):
+        require_same_meshes(f"farm node (720p) camera {b}, direct calls on a thread", got[c],
+                            threaded["out"][0][b])
+    for b, c in enumerate(chans):
+        require_same_meshes(f"farm node (720p) camera {b}", got[c], want[b])
+    dead_meshes = [sum(m.timestamp > NODE_WARMUP + NODE_TIMED for m in got[c]) for c in chans]
+    if min(dead_meshes[:-1]) == 0 or dead_meshes[-1] != 0:
+        raise AssertionError(f"farm node (720p): meshes a camera while camera {B - 1} was "
+                             f"silent: {dead_meshes}")
+    timed = slice(NODE_WARMUP, NODE_WARMUP + NODE_TIMED)
+    node_ms = 1e3 * statistics.mean(walls[timed])
+    busy_ms = 1e3 * statistics.mean(busy[timed])
+    pub_ms = 1e3 * statistics.mean(pub[timed])
+    direct_ms = 1e3 * statistics.mean(step_s[timed])
+    thread_ms = 1e3 * statistics.mean(threaded["out"][1][timed])
+    delaunay_ms = 1e3 * statistics.mean(delaunay_s[timed])
+    print(f"[farm node] 720p farm point ({B} cameras of {W}x{H} uint8 mono, internal_scale "
+          f"{FARM_SCALE}, mesher_scale {scale}, K={params.tracker.capacity}): {NODE_TIMED} "
+          f"timed fleet steps, publish to the step's last mesh {node_ms:.3f} ms a step "
+          f"({1e3 / node_ms:.2f} fleet steps/s, {B * 1e3 / node_ms:.1f} camera-fps), of which "
+          f"publishing the {B} frames {pub_ms:.3f} ms and the node's thread in its step "
+          f"{busy_ms:.3f} ms (the interpreter's garbage collection, any thread, {gc_ms:.3f} ms "
+          f"a step); the direct calls on the same frames "
+          f"{direct_ms:.3f} ms a step on the main thread, {thread_ms:.3f} ms on a thread of "
+          f"their own (build_meshes of {B} cameras {delaunay_ms:.3f} ms of it); the node's "
+          f"own cost, its step and its wake-up and batch stacking beyond the direct calls on a "
+          f"thread, {node_ms - pub_ms - thread_ms:.3f} ms a step; meshes a camera "
+          f"{[len(got[c]) for c in chans]}, equal bit for bit to the direct calls'; camera "
+          f"{B - 1} silent for {DEAD_STEPS} steps: {node.stale_fills} stale fills, meshes a "
+          f"camera meanwhile {dead_meshes}")
+
+
+def phase_mesher_node(canvas, dev) -> None:
+    """The object mesher node on the card (see the module docstring, phase
+    15): the shipped ObjectMesherNode.yaml on a 1280x720 rig, its meshes
+    against a direct ObjectMesher on the downscaled frames, bit for bit,
+    then the same frames through the shared-memory rings."""
+    frames = []
+    for k in range(MESHER_FRAMES):
+        x0 = 100 + SHIFT * k
+        frames.append((np.ascontiguousarray(canvas[:, x0 : x0 + W], np.float32),
+                       np.ascontiguousarray(canvas[:, x0 + TRUE_DISP : x0 + TRUE_DISP + W],
+                                            np.float32)))
+    with tempfile.TemporaryDirectory() as tmp:
+        rig_yaml = Path(tmp) / "rig720.yaml"
+        text = Path(FARMSIM_YAML).read_text()
+        text = text.replace("image_height: 376", f"image_height: {H}")
+        text = text.replace("image_width: 672", f"image_width: {W}")
+        text = text.replace("[336.135986, 336.135986, 335.5, 187.5]",
+                            f"[700.0, 700.0, {W / 2}, {H / 2}]")
+        rig_yaml.write_text(text)
+
+        def node_and_sink():
+            bus = InProcessBus()
+            node = omn.from_config(bus, MESHER_YAML, str(rig_yaml), device=dev)
+            return bus, node, mesh_sink(bus, [node.channel_output])[node.channel_output]
+
+        bus, node, got = node_and_sink()
+        height = node.input_height
+        t0 = time.perf_counter()
+        for k, (left, right) in enumerate(frames):
+            bus.publish("sensors/stereo", StereoImageMessage(
+                k + 1, 0, ImageMessage.from_array(k + 1, left),
+                ImageMessage.from_array(k + 1, right)))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / MESHER_FRAMES
+
+        rig = load_rig(YamlParser(shared_path=str(rig_yaml)))
+        params = load_mesher_params(YamlParser(node_path=MESHER_YAML))
+        mesher = ObjectMesher(params, rig.rescale(height / rig.left.height), device=dev)
+        want = []
+        for k, (left, right) in enumerate(frames):
+            mesh = mesher.process_stereo(*(omn.downscale(torch.from_numpy(a).to(dev), height)
+                                           for a in (left, right)))
+            if mesh.num_triangles > 0:
+                want.append((k + 1, mesh.vertices, mesh.triangles))
+        if node.frames_in != MESHER_FRAMES or not want:
+            raise AssertionError(f"mesher node: {node.frames_in} frames in of {MESHER_FRAMES}, "
+                                 f"{len(want)} meshes from the direct calls")
+        require_same_meshes("mesher node", got, want)
+
+        bus, node, got_shm = node_and_sink()
+        writers = {side: shm_ring.ShmRingWriter(str(Path(tmp) / f"{side}.ring"))
+                   for side in ("left", "right")}
+        try:
+            for k, pair in enumerate(frames):
+                for side, img in zip(("left", "right"), pair):
+                    seq = writers[side].write(k + 1, img)
+                    bus.publish(f"sensors/stereo_shm_{side}", ShmImageHeader(
+                        k + 1, W, H, 1, seq, writers[side].path))
+        finally:
+            for w_ in writers.values():
+                w_.close()
+        require_same_meshes("mesher node over the shm rings", got_shm, want)
+    print(f"[mesher node] {MESHER_YAML} on a {W}x{H} rig (mesher_input_height {height}): "
+          f"{MESHER_FRAMES} raw float frames, {1e3 * wall:.3f} ms a frame "
+          f"({1.0 / wall:.1f} frames/s) from publish to mesh; {len(got)} meshes, equal bit for "
+          f"bit to a direct ObjectMesher on the downscaled frames; the same frames through "
+          f"the shared-memory rings ({'native ring' if shm_ring.native_available() else 'none'}"
+          f", {shm_ring._LIB_PATH}): the same {len(got_shm)} meshes")
 
 
 def main() -> int:
@@ -1803,6 +2252,8 @@ def main() -> int:
 
     l2 = l2_latency(dev)
     rows = phase_kernels(left_rgb, right_rgb, l2)
+    rows.update(phase_lm_kernels(record_lm_calls(
+        lambda: perception_step(left_rgb, right_rgb, rig, config, device=dev))))
     launches, disp, runs = phase_end_to_end(left_rgb, right_rgb, rig, config)
     phase_graph(left_rgb, right_rgb, rig, config, disp, runs,
                 ("pm_match", rows["pm_match"]["graph_ms"]))
@@ -1825,7 +2276,9 @@ def main() -> int:
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
     batched = phase_batched(canvas, rig, config, rows, l2)
-    fleet_lk = phase_fleet(canvas, rig, rows, dev)
+    fleet_lk, fleet_lm = phase_fleet(canvas, rig, rows, dev)
+    phase_farm_node(canvas, dev)
+    phase_mesher_node(canvas, dev)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
@@ -1837,9 +2290,12 @@ def main() -> int:
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
     # And lk_track's, from the fleet frontend (phase 13).
     rows["lk_track"]["batched"] = dict(cameras=N_CAMERAS, **fleet_lk)
+    # And the LM kernels', from the fleet frontend's enhancement (phase 13).
+    for k, row in fleet_lm.items():
+        rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
-             launches=launches[k], library_ms=None, **rows[k])
+             launches=launches[k], **{"library_ms": None, **rows[k]})
         for k in SOURCES
     ]
     print(json.dumps({"kernels": kernels}))

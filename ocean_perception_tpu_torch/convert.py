@@ -23,7 +23,7 @@ import torch
 from .core.cameras import PinholeCamera, StereoCamera
 from .imaging.enhance import EnhanceParams
 from .mesher.landmark_graph import LandmarkGraph
-from .mesher.object_mesher import ObjectMesherDeviceParams
+from .mesher.object_mesher import ObjectMesherDeviceParams, ObjectMesherParams
 from .models.perception import PerceptionConfig
 from .stereo.patchmatch import PatchMatchParams
 from .stereo.sgm import SgmParams
@@ -131,6 +131,14 @@ def object_mesher_device_params_from_jax(params) -> ObjectMesherDeviceParams:
     """``edge_gate_impl`` is dropped: the port gathers, which equals the
     one-hot form on every output."""
     return _fields(ObjectMesherDeviceParams, params, tracker=stereo_tracker_params_from_jax)
+
+
+def object_mesher_params_from_jax(params) -> ObjectMesherParams:
+    """The host ``ObjectMesher``'s params: the device params, the smallest
+    cluster meshed and the disparity scale."""
+    return ObjectMesherParams(device=object_mesher_device_params_from_jax(params.device),
+                              vertex_min_obs=int(params.vertex_min_obs),
+                              disparity_scale=float(params.disparity_scale))
 
 
 def _tensor(v, dtype: torch.dtype, device=None) -> torch.Tensor:

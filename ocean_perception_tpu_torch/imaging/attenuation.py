@@ -19,7 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..ops.lm import LMConfig, lm_solve
+from ..ops.lm import LMConfig, channel_sq, lm_solve, row_sum
 from .formation import beta_d_of_z, beta_guesses
 
 
@@ -107,7 +107,7 @@ def estimate_beta(
 
     def residual_jac(X):
         r_c, exp_bz, exp_dz, beta, a, c = terms(X)
-        r = (r_c * r_c).sum(dim=-1)
+        r = channel_sq(r_c)
         w = 1.0 / (1.0 + r * r) * w_valid
         beta2_inv = 1.0 / torch.clamp_min(beta * beta, 1e-3)
         outer = -2.0 * r_c * log_E * beta2_inv
@@ -120,8 +120,8 @@ def estimate_beta(
 
     def error_fn(X):
         r_c = terms(X)[0]
-        r = (r_c * r_c).sum(dim=-1) * w_valid
-        return r.sum(dim=-1) / torch.clamp_min(n_valid, 1.0)
+        r = channel_sq(r_c) * w_valid
+        return row_sum(r) / torch.clamp_min(n_valid, 1.0)
 
     result = lm_solve(
         residual_jac,

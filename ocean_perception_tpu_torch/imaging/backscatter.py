@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.histogram import masked_percentile_threshold
-from ..ops.lm import LMConfig, lm_solve
+from ..ops.lm import LMConfig, channel_sq, lm_solve, row_sum
 from .formation import backscatter_start
 
 BACKGROUND_RANGE = 20.0  # meters; backscatter.cpp kBackgroundRange
@@ -118,7 +118,7 @@ def estimate_backscatter(
 
     def residual_jac(X):
         r_c, atten_back, exp_beta_D = _residual_terms(X, rgb, z)
-        r = (r_c * r_c).sum(dim=-1)
+        r = channel_sq(r_c)
         w = 1.0 / (1.0 + r * r) * w_valid
         B, Jp = X[..., None, 0:3], X[..., None, 6:9]
         exp_beta_B = torch.exp(-X[..., None, 3:6] * zz)
@@ -132,8 +132,8 @@ def estimate_backscatter(
 
     def error_fn(X):
         r_c, _, _ = _residual_terms(X, rgb, z)
-        r = (r_c * r_c).sum(dim=-1) * w_valid
-        return r.sum(dim=-1) / torch.clamp_min(n_valid, 1.0)
+        r = channel_sq(r_c) * w_valid
+        return row_sum(r) / torch.clamp_min(n_valid, 1.0)
 
     result = lm_solve(
         residual_jac,

@@ -14,6 +14,10 @@ wrappers only take CUDA tensors; the plain PyTorch twins live beside the
 public functions that dispatch to them (``stereo/cost.py``,
 ``stereo/patchmatch.py``, ``tracking/lk.py``).
 
+``lm_solve_small`` and ``lm_row_sum`` (``csrc/lm_solve.cu``) are the
+Levenberg-Marquardt step of the Sea-thru fits and its error sums, in an
+order that does not depend on the batch (``ops/lm.py``).
+
 ``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
 volume in the two strip layouts; each has its own entry in
 :data:`LAUNCHES`, so a run shows which layout the match went through.
@@ -43,7 +47,7 @@ from .windows import fold_rings
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu")
+SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu", "lm_solve.cu")
 HEADERS = ("cost_terms.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,7 +57,7 @@ NVCC_FLAGS = (
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"cost_volume": 0, "pm_match": 0, "build_volumes": 0, "pm_match_strip": 0,
-            "lk_track": 0}
+            "lk_track": 0, "lm_solve_small": 0, "lm_row_sum": 0}
 
 
 def reset_launches() -> None:
@@ -128,6 +132,8 @@ _SIGNATURES = {
     "opt_pm_match": [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P],
     "opt_build_volumes": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
     "opt_pm_match_strip": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
+    "opt_lm_solve_small": [_P] * 4 + [_I] * 4 + [_P],
+    "opt_lm_row_sum": [_P, _P, _I, _I, _P],
 }
 
 
@@ -376,3 +382,46 @@ def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int
     _check(err, "lk_track")
     LAUNCHES["lk_track"] += 1
     return out, status
+
+
+LM_MAX_P = 16
+
+
+def lm_solve_small(J, r, lam, marquardt: bool) -> torch.Tensor:
+    """Each system's damped LM step, one launch (csrc/lm_solve.cu, a warp
+    a system): (..., N, P) J, (..., N) r and (...) lam give the (..., P)
+    solution of (JtJ + lam * damp) x = -Jtr; see ops/lm.py::lm_step_plain."""
+    if J.ndim < 2:
+        raise ValueError(f"J must be (..., N, P), got {tuple(J.shape)}")
+    *batch, N, P = J.shape
+    if not 1 <= P <= LM_MAX_P:
+        raise ValueError(f"lm_solve_small takes 1..{LM_MAX_P} parameters, got {P}")
+    _require(J, "J", (torch.float32,))
+    _require(r, "r", (torch.float32,), (*batch, N))
+    _require(lam, "lam", (torch.float32,), batch)
+    _check_size(J.numel())
+    delta = torch.empty((*batch, P), dtype=torch.float32, device=J.device)
+    with torch.cuda.device(J.device):
+        err = library().opt_lm_solve_small(J.data_ptr(), r.data_ptr(), lam.data_ptr(),
+                                           delta.data_ptr(), math.prod(batch), N, P,
+                                           int(marquardt), _stream(J))
+    _check(err, "lm_solve_small")
+    LAUNCHES["lm_solve_small"] += 1
+    return delta
+
+
+def lm_row_sum(x) -> torch.Tensor:
+    """Sums over the last axis of (..., N) x in the pairwise tree order,
+    one launch (csrc/lm_solve.cu, a thread a row); see
+    ops/lm.py::tree_sum_plain."""
+    if x.ndim < 1:
+        raise ValueError("x must have a last axis to sum")
+    _require(x, "x", (torch.float32,))
+    _check_size(x.numel())
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = library().opt_lm_row_sum(x.data_ptr(), out.data_ptr(), out.numel(), x.shape[-1],
+                                       _stream(x))
+    _check(err, "lm_row_sum")
+    LAUNCHES["lm_row_sum"] += 1
+    return out

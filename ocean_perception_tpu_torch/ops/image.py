@@ -132,8 +132,15 @@ def gradient_magnitude(image: torch.Tensor) -> torch.Tensor:
 
 
 def _box_sum_1d(padded: torch.Tensor, k: int, axis: int) -> torch.Tensor:
-    """Windowed sum of width k along ``axis`` by cumsum difference."""
-    S = torch.cumsum(padded, dim=axis)
+    """Windowed sum of width k along ``axis`` by cumsum difference.
+
+    The prefix sums run along an axis that is not the last (a trailing unit
+    axis is added), so that on the card each row is one thread's sequential
+    sum, as on the CPU: torch's scan along the last axis is a tree whose
+    width it picks from the number of rows, so a camera's sums would depend
+    on how many cameras share the call."""
+    axis = axis % padded.ndim
+    S = torch.cumsum(padded.unsqueeze(-1), dim=axis).squeeze(-1)
     zero_shape = list(S.shape)
     zero_shape[axis] = 1
     S0 = torch.cat([S.new_zeros(zero_shape), S], dim=axis)

@@ -555,8 +555,9 @@ def test_batched_kernels_match_batched_twins(cuda_device, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("strips", [False, True])
 def test_batched_perception_step_on_the_card(cuda_device, strips):
-    """perception_step on 3 cameras of different scenes: each kernel of its
-    path launches once a call, each camera's disparity and depth equal its
+    """perception_step on 3 cameras of different scenes: each stereo kernel
+    of its path launches once a call and the Sea-thru LM kernels once a
+    step, each camera's disparity, depth and enhanced image equal its
     one-camera step's bit for bit, no host sync, and the CPU agrees."""
     from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
     from ocean_perception_tpu_torch.models.perception import PerceptionConfig, perception_step
@@ -578,12 +579,17 @@ def test_batched_perception_step_on_the_card(cuda_device, strips):
     out = perception_step(left, right, rig, config, device=cuda_device)
     want = {"build_volumes": 1, "pm_match_strip": 1} if strips else {"cost_volume": 1,
                                                                      "pm_match": 1}
+    # The enhancement's Sea-thru fits: a step an iteration, and the error
+    # sums (two at each fit's start, one an iteration).
+    iters = config.enhance.back_opt_iters + config.enhance.beta_opt_iters
+    want.update(lm_solve_small=iters, lm_row_sum=iters + 4)
     assert {k: v for k, v in cuda.LAUNCHES.items() if v} == want
     assert out.disparity.shape == (3, H, W) and out.enhanced_left.shape == (3, H, W, 3)
     for b in range(3):
         one = perception_step(left[b], right[b], rig, config, device=cuda_device)
         assert torch.equal(out.disparity[b], one.disparity)
         assert torch.equal(out.depth[b], one.depth)
+        assert torch.equal(out.enhanced_left[b], one.enhanced_left)
     cpu = perception_step(left.cpu(), right.cpu(), rig, config, device="cpu")
     assert ((out.disparity.cpu() - cpu.disparity).abs() <= 1e-3).float().mean() >= 0.99
     assert sync_sites(lambda: perception_step(left, right, rig, config, device=cuda_device)) == []
