@@ -121,7 +121,28 @@ disparity and motion, in phases:
    MESHER_FRAMES raw float frames, the meshes equal bit for bit to a direct
    ``ObjectMesher`` on the downscaled frames, then the same frames through
    the shared-memory rings (``fabric/shm_ring.py``), the same meshes;
-   frames/s.
+   frames/s;
+16. the state estimator (``vio/state_estimator.py::StateEstimator``) built
+   by the port's loaders from the shipped
+   ``config/nodes/StateEstimatorNode.yaml`` and ``config/shared/Farmsim.yaml``
+   (a 672x376 rig; window 40, 6 Gauss-Newton iterations, 16 landmark
+   columns, 256 IMU samples a keypose; tracker capacity 200, LK window 21
+   on 5 levels, ``max_disp`` 128), on a mission made here with numpy and
+   scipy: a textured plane at the depth of a 14 px disparity, the
+   bounded-sin motion of ``tests/synthetic_vio.py``, 10 Hz stereo, 200 Hz
+   IMU and 2 Hz depth for 30 s (60 keyposes; the window slides 20 times).
+   It checks ``lk_track``'s launches (2 a frame, no other kernel), the host
+   syncs a frame, an IMU sample, a smoother update and a slide (none above
+   the counts ``vio/state_estimator.py`` states), every tensor of the window
+   and the EKF state on the card after the run, the smoother trajectory's
+   ATE against the groundtruth (unaligned, below VIO_MAX_ATE) and RPE
+   (``vio/evaluation.py``), the first VIO_CPU_FRAMES frames again through
+   the port on the CPU (modes, VO statuses and keyposes equal, smoother
+   poses within VIO_CPU_TOL), and ``lk_track`` against its twin on one
+   frame's recorded calls at the mission's shapes (bit-identical); it prints
+   the frontend ms a frame, the smoother-update ms and the filter-step ms
+   (CUDA events around each call; p50 and p95), the syncs and their sites,
+   and the peak device memory.
 
 The enhanced image of a batched camera is held to the one-camera step's as
 the port's CPU tests hold it to the reference: the median and the 99.9th
@@ -148,7 +169,9 @@ the larger of the bytes it must move over 3.35 TB/s and the operations it
 must do over 67 TFLOP/s (float32), from this run's shapes (for the match,
 the volume elements its plain twin reads on this run's seed); for the match
 and ``lk_track`` also their chains of dependent operations (the match's in
-units of the chase's latency in this run).
+units of the chase's latency in this run). ``lk_track``'s row also carries,
+under ``vio``, its launches, times and bound on the state estimator's path
+(phase 16).
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
@@ -2238,6 +2261,447 @@ def phase_mesher_node(canvas, dev) -> None:
           f", {shm_ring._LIB_PATH}): the same {len(got_shm)} meshes")
 
 
+VIO_YAML = "config/nodes/StateEstimatorNode.yaml"
+VIO_SECONDS = 30.0      # phase 16's mission: 40 keyposes fill the window, then it slides
+VIO_DISP = 14.0         # px: the textured plane sits where its disparity is whole (below)
+VIO_SIN_A = 2.5         # bounded-sin motion along x (tests/synthetic_vio.py:35-40)
+VIO_SIN_W = 2.0 * np.pi / 8.0
+VIO_T0 = 0.1            # first frame, s
+VIO_FRAME_NS, VIO_IMU_NS, VIO_DEPTH_NS = 100_000_000, 5_000_000, 500_000_000
+VIO_CPU_FRAMES = 40     # frames run again on the CPU
+VIO_LK_FRAME = 50       # the frame whose lk_track calls are recorded
+VIO_MAX_ATE = 0.10      # m, tests/test_mission_matrix.py:28's bound for the baseline mission
+VIO_CPU_TOL = 1e-3      # m and rad: card against CPU, smoother poses over the first frames
+VIO_MIN_SLIDES = 10     # the window fills, then slides at least this often
+VIO_WARMUP = 10         # frames before the syncs count: the one-time constant caches fill there
+
+
+def vio_x(t: float) -> float:
+    return VIO_SIN_A * (1.0 - np.cos(VIO_SIN_W * max(t - VIO_T0, 0.0)))
+
+
+def vio_ax(t: float) -> float:
+    return VIO_SIN_A * VIO_SIN_W ** 2 * np.cos(VIO_SIN_W * max(t - VIO_T0, 0.0)) if t >= VIO_T0 else 0.0
+
+
+def vio_canvas(h: int, w: int, seed: int = 7) -> np.ndarray:
+    """A textured plane: random noise smoothed at three scales (features for
+    every LK level), in [0.1, 0.9]."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    noise = rng.random((h, w))
+    tex = sum(wt * gaussian_filter(noise, s) / gaussian_filter(noise, s).std()
+              for wt, s in ((0.5, 1.0), (0.3, 3.0), (0.2, 8.0)))
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+    return (0.1 + 0.8 * tex).astype(np.float32)
+
+
+def vio_window(canvas: np.ndarray, x0: float, y0: float, h: int, w: int) -> np.ndarray:
+    """The (h, w) view of the canvas at a subpixel offset, bilinear."""
+    ix, iy = int(np.floor(x0)), int(np.floor(y0))
+    fx, fy = x0 - ix, y0 - iy
+    c = canvas[iy:iy + h + 1, ix:ix + w + 1]
+    top = (1 - fx) * c[:-1, :-1] + fx * c[:-1, 1:]
+    bot = (1 - fx) * c[1:, :-1] + fx * c[1:, 1:]
+    return np.ascontiguousarray(((1 - fy) * top + fy * bot).astype(np.float32))
+
+
+def vio_mission(rig, n_gravity, seconds: float = VIO_SECONDS, disp: float = VIO_DISP):
+    """A synthetic mission of numpy arrays: the rig films a fronto-parallel
+    textured plane at the depth where its disparity is ``disp`` px (by
+    default VIO_DISP, a whole number as in tests/synthetic_vio.py's scene:
+    the shipped matcher does not refine to subpixels, so a fractional
+    disparity biases every stereo depth) while the body moves along x on
+    the bounded sin of tests/synthetic_vio.py; 10 Hz stereo, 200 Hz IMU
+    (its specific force from the analytic acceleration and the configured
+    gravity), 2 Hz depth along the gravity axis. Returns the events in
+    time order (IMU before a frame of the same stamp), the groundtruth
+    poses at the frame times, the number of frames and the plane's depth."""
+    from ocean_perception_tpu_torch.core.measurements import (DepthMeasurement,
+                                                              GroundtruthPose, ImuMeasurement,
+                                                              StereoImage)
+
+    h, w = int(rig.left.height), int(rig.left.width)
+    fx = float(rig.left.fx)
+    depth = fx * float(rig.baseline) / disp
+    px_max = fx * 2 * VIO_SIN_A / depth
+    canvas = vio_canvas(h + 10, int(w + 40 + px_max + disp + 20))
+    g = np.asarray(n_gravity, np.float64)
+    g_unit = np.zeros(3)
+    g_unit[int(np.argmax(np.abs(g)))] = np.sign(g[int(np.argmax(np.abs(g)))])
+    end_ns = int(round(seconds * 1e9))
+    events, gt, n_frames = [], [], 0
+    for t_ns in range(int(VIO_T0 * 1e9), end_ns + 1, VIO_IMU_NS):
+        t = t_ns * 1e-9
+        a_world = np.array([vio_ax(t), 0.0, 0.0])
+        events.append(("imu", ImuMeasurement(t_ns, np.zeros(3), a_world - g)))
+        if t_ns % VIO_DEPTH_NS == 0:
+            events.append(("depth", DepthMeasurement(t_ns, float(g_unit @ np.array([vio_x(t), 0, 0])))))
+        if t_ns % VIO_FRAME_NS == 0:
+            x0 = 40 + fx * vio_x(t) / depth
+            left = vio_window(canvas, x0, 4.0, h, w)
+            right = vio_window(canvas, x0 + disp, 4.0, h, w)
+            events.append(("stereo", StereoImage(t_ns, 0, left, right)))
+            T = np.eye(4)
+            T[0, 3] = vio_x(t)
+            gt.append(GroundtruthPose(t_ns, T))
+            n_frames += 1
+    return events, gt, n_frames, depth
+
+
+class SyncLog:
+    """Every host sync under torch.cuda.set_sync_debug_mode, by where it came
+    from in the estimator: a slide's eigh, the smoother's readout, the
+    filter, or the frame; those made before ``armed`` is set count as
+    warm-up (the device constants' caches fill once, at their first use)."""
+
+    def __init__(self):
+        self.counts = {}
+        self.sites = {}
+        self.armed = False
+
+    def record(self, message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        names = {f.name for f in stack}
+        kind = ("slide" if "slide_window" in names else
+                "smoother" if "_run_smoother" in names else
+                "imu" if "receive_imu" in names else
+                "frame" if "receive_stereo" in names else "other")
+        if not self.armed:
+            kind = "warm-up " + kind
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        frames = [f for f in stack if "ocean_perception_tpu_torch" in f.filename] or stack[-3:]
+        site = " <- ".join(f"{Path(f.filename).name}:{f.lineno}" for f in frames[::-1][:3])
+        self.sites[(kind, site)] = self.sites.get((kind, site), 0) + 1
+
+    def __enter__(self):
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self.record
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+
+
+def vio_drive(est, events, until_ns=None, lk_frame=None, on_frame=None):
+    """Feed the events in order; returns the smoother callbacks' (t_ns, R, p)
+    (device tensors, read after the run), the mode and VO status after
+    every frame, and lk_frame's recorded lk_track calls. on_frame(i) runs
+    before frame i."""
+    from ocean_perception_tpu_torch.vio.state_estimator import SmootherMode
+
+    solves, modes, statuses, calls = [], [], [], None
+    est.smoother_callbacks.append(
+        lambda r: solves.append((est._last_smoother_t_ns, r.R, r.p)))
+    frame = 0
+    for kind, m in events:
+        if until_ns is not None and m.timestamp > until_ns:
+            break
+        if kind == "imu":
+            est.receive_imu(m)
+        elif kind == "depth":
+            est.receive_depth(m)
+        else:
+            if on_frame is not None:
+                on_frame(frame)
+            if frame == lk_frame:
+                calls = record_lk_calls(lambda: est.receive_stereo(m))
+            else:
+                est.receive_stereo(m)
+            modes.append(est.mode is SmootherMode.VISION_AVAILABLE)
+            statuses.append(est.last_status)
+            frame += 1
+    return solves, modes, statuses, calls
+
+
+def timed(spans: dict, name: str, fn):
+    """fn with CUDA events recorded around each call into spans[name] (read
+    them after a synchronize; perf_counter seconds without a card)."""
+    def call(*args, **kwargs):
+        if torch.cuda.is_available():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+        else:
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            end = time.perf_counter()
+        spans.setdefault(name, []).append((start, end))
+        return out
+
+    return call
+
+
+def percentiles(xs) -> str:
+    a = np.asarray(xs, np.float64)
+    return (f"p50 {np.percentile(a, 50):.3f}, p95 {np.percentile(a, 95):.3f}, "
+            f"max {a.max():.3f} ms over {a.size}")
+
+
+def device_breakdown(fn, top: int = 5) -> tuple[float, list]:
+    """The device time of one call of fn() (``torch.profiler``, after a
+    warm-up): the sum over its CUDA kernels in ms, and the top kernels by
+    time as (name, ms, count)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def vio_stage_times(est, frame) -> None:
+    """Where an estimator step's time goes, on its state after the mission:
+    each stage's call time (CUDA events around one call, the host's
+    enqueue included; median after two warm-ups) and its CUDA kernels a
+    call (``torch.profiler``): the frontend step and, apart, its tracker
+    and its odometry (two LM runs of ``max_iters`` steps; replayed from its
+    CUDA graph and by calls) and one QR of the odometry's stacked system;
+    the smoother's preintegration, one linearization (``jacfwd``), one
+    damped QR step, the whole update by calls and replayed from its graph,
+    and a slide; the filter step replayed from its graph, and its predict
+    and IMU update by calls. For the frontend step and each graph replay
+    also its kernels' device time (its share of the call: the device's
+    busy share) and its longest kernels."""
+    from ocean_perception_tpu_torch.tracking.stereo_tracker import track_and_triangulate
+    from ocean_perception_tpu_torch.vio import ekf as vekf
+    from ocean_perception_tpu_torch.vio import smoother as vsm
+    from ocean_perception_tpu_torch.vio.odometry import _optimize, optimize_odometry
+    from ocean_perception_tpu_torch.vio.stereo_frontend import frontend_step, to_device
+
+    dev, fe, rig = est.device, est.frontend, est.rig
+    left = to_device(frame.left, dev, torch.float32)
+    right = to_device(frame.right, dev, torch.float32)
+    st, p, prev = fe.state, fe.params, fe._prev_left
+    fxb = float(np.float32(rig.fx) * np.float32(rig.baseline))
+    new_state, _ = track_and_triangulate(st, prev, left, right, fxb, p.tracker)
+    a, b = st.table, new_state.table
+    mask = (a.ids == b.ids) & (a.ids >= 0) & b.alive & (a.kf_disparities > 0) & (b.missed == 0)
+    P0 = rig.left.backproject(a.kf_pixels, fxb / torch.clamp(a.kf_disparities, min=1e-3))
+    sig = torch.full((b.capacity,), p.pixel_sigma, device=dev)
+    A = torch.randn(2 * b.capacity + 6, 6, device=dev)
+    win, cfg, calib = est.window, est._smoother_cfg, est.params.imu_calib
+    n_steps = max(est._imu_rows)
+    g, gu = est._gravity_w, est._gravity_unit_w
+    pims = vsm.preintegrate_window(win, calib, n_steps)
+    J, r = vsm._linearize(win, pims, g, gu, cfg)
+    cov = est._last_smoother_result.cov_slot1
+    ekf = est.ekf_state
+    wa = torch.ones(6, dtype=torch.float64, device=dev)
+    x = torch.cat([torch.full((1,), 0.005, dtype=torch.float64, device=dev), wa])
+    eye = torch.eye(4, device=dev)
+    graphed = list(est._smoother_steps.items())  # on the card: one bucket
+    stages = [
+        ("frontend_step", lambda: frontend_step(st, prev, left, right, rig, p)),
+        ("  track_and_triangulate", lambda: track_and_triangulate(st, prev, left, right, fxb,
+                                                                  p.tracker)),
+        (f"  optimize_odometry ({int(mask.sum())} points), graph replay",
+         lambda: optimize_odometry(P0, b.pixels, sig, mask, rig, params=p.odometry)),
+        ("  the same by calls",
+         lambda: _optimize(P0, b.pixels, sig, mask, eye, rig, p.odometry)),
+        (f"  torch.linalg.qr of {tuple(A.shape)} float32", lambda: torch.linalg.qr(A)),
+        (f"preintegrate_window ({win.imu_samples.shape[0]} slots, {n_steps} steps)",
+         lambda: vsm.preintegrate_window(win, calib, n_steps)),
+        (f"_linearize (J {tuple(J.shape)}, {J.dtype})",
+         lambda: vsm._linearize(win, pims, g, gu, cfg)),
+        (f"_qr_step (QR of {J.shape[0] + J.shape[1]}x{J.shape[1]})",
+         lambda: vsm._qr_step(J, r, cfg)),
+        (f"solve_window ({cfg.iterations} iterations)",
+         lambda: vsm.solve_window(win, pims, g, gu, cfg, est._newest_slot())),
+        *[(f"the smoother update ({bucket} preintegration steps + the solve), graph replay",
+           lambda: update(win)) for bucket, update in graphed],
+        ("slide_window", lambda: vsm.slide_window(win, cov)),
+        ("the filter step, graph replay", lambda: est._filter_step(ekf, x)),
+        ("ekf_predict", lambda: vekf.ekf_predict(ekf, 0.005, est.ekf_params)),
+        ("ekf_update_imu", lambda: vekf.ekf_update_imu(ekf, wa[:3], wa[3:], est._gravity,
+                                                      est.ekf_params)),
+    ]
+    for name, fn in stages:
+        slow = name.startswith(("solve_window", "_linearize", "preintegrate", "frontend",
+                                "  track", "  optimize", "  the same", "the smoother"))
+        ms = call_ms(fn, 3 if slow else N_TIMED)
+        kernels = sum(kernel_count(fn, 1).values())
+        print(f"[vio stage] {name}: {ms:.3f} ms a call, {kernels:.0f} CUDA kernels "
+              f"({1e3 * ms / max(kernels, 1):.1f} us a kernel)")
+        if "graph replay" in name or name == "frontend_step":
+            busy, top = device_breakdown(fn)
+            print(f"[vio stage]   its kernels' device time {busy:.3f} ms ({100 * busy / ms:.1f}% "
+                  f"of the call); the longest: " + "; ".join(
+                      f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in top))
+
+
+def phase_state_estimator(dev, smi: str) -> dict:
+    """The state estimator on the card (see the module docstring, phase 16);
+    returns lk_track's row at the mission's shapes."""
+    from ocean_perception_tpu_torch.config.bindings import load_state_estimator_params
+    from ocean_perception_tpu_torch.vio import state_estimator as vse
+    from ocean_perception_tpu_torch.vio.evaluation import evaluate_trajectory
+
+    parser = YamlParser(node_path=VIO_YAML, shared_path=FARMSIM_YAML)
+    params = load_state_estimator_params(parser)
+    rig = load_rig(parser)
+    cfg = params.smoother
+    trk = params.frontend.tracker
+    print(f"[vio] {VIO_YAML} on {FARMSIM_YAML}: rig {rig.left.width}x{rig.left.height}, fx "
+          f"{rig.left.fx:.3f}, baseline {rig.baseline:.3f}; window {cfg.window}, "
+          f"{cfg.iterations} GN iterations, {cfg.max_landmarks} landmark columns, "
+          f"{params.max_imu_per_keypose} IMU samples a keypose; tracker capacity {trk.capacity}, "
+          f"LK window {trk.lk.window}, max_level {trk.lk.max_level}, max_disp {trk.matcher.max_disp}")
+    t0 = time.perf_counter()
+    events, gt, n_frames, depth = vio_mission(rig, params.n_gravity)
+    print(f"[vio] mission: {VIO_SECONDS:.0f} s, {n_frames} stereo frames, "
+          f"{sum(k == 'imu' for k, _ in events)} IMU samples, "
+          f"{sum(k == 'depth' for k, _ in events)} depth; plane at {depth:.4f} m "
+          f"(disparity {VIO_DISP:g} px); made in {time.perf_counter() - t0:.1f} s")
+
+    est = vse.StateEstimator(params, rig, device=dev)
+    est.initialize(gt[0].timestamp, gt[0].world_T_body)
+    # The frontend step, the smoother update (with the filter's rewind and
+    # replay) and the filter step, each timed by CUDA events around its call.
+    events_ms = {}
+    est.frontend.track = timed(events_ms, "frontend", est.frontend.track)
+    est._run_smoother = timed(events_ms, "smoother", est._run_smoother)
+    est._filter_predict_update = timed(events_ms, "filter", est._filter_predict_update)
+    slides = [0]
+    orig_slide = vse.slide_window
+
+    def counting_slide(*a, **k):
+        slides[0] += 1
+        return orig_slide(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    cuda.reset_launches()
+    vse.slide_window = counting_slide
+    t0 = time.perf_counter()
+    try:
+        counted = {}
+
+        def arm(i):
+            if i == VIO_WARMUP:
+                syncs.armed = True
+                counted.update(solves=len(events_ms.get("smoother", [])), slides=slides[0])
+
+        with SyncLog() as syncs:
+            solves, modes, statuses, calls = vio_drive(est, events, lk_frame=VIO_LK_FRAME,
+                                                       on_frame=arm)
+    finally:
+        vse.slide_window = orig_slide
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    spans = {name: [start.elapsed_time(end) if isinstance(start, torch.cuda.Event)
+                    else 1e3 * (end - start) for start, end in pairs]
+             for name, pairs in events_ms.items()}
+    n_solves, n_imu = len(solves), len(spans["filter"])
+    if launches["lk_track"] != 2 * n_frames or any(
+            v for k, v in launches.items() if k != "lk_track"):
+        raise AssertionError(f"vio launches {launches}: expected lk_track 2 a frame over "
+                             f"{n_frames} frames and nothing else")
+    print(f"[vio] {n_frames} frames in {wall:.1f} s ({1e3 * wall / n_frames:.2f} ms a frame of "
+          f"host time, IMU and depth included): {est._n_keyposes} keyposes in the window, "
+          f"{n_solves} smoother updates, {slides[0]} slides; launches {launches}")
+    print(f"[vio] frontend ms a frame (CUDA events, by calls): {percentiles(spans['frontend'])}")
+    print(f"[vio] smoother-update ms (preintegration, {cfg.iterations} + 1 linearizations, "
+          f"readout, the filter's rewind and replay; CUDA events): "
+          f"{percentiles(spans['smoother'])}")
+    print(f"[vio] filter-step ms (predict + IMU update, float64; CUDA events) against the "
+          f"{VIO_IMU_NS / 1e6:.0f} ms IMU period: {percentiles(spans['filter'])}")
+    # Counted from frame VIO_WARMUP on: frames, IMU samples (20 a frame),
+    # smoother updates and slides after it.
+    n_f, n_i = n_frames - VIO_WARMUP, n_imu - 20 * VIO_WARMUP
+    n_s, n_sl = n_solves - counted["solves"], slides[0] - counted["slides"]
+    per = dict(frame=syncs.counts.get("frame", 0) / n_f,
+               imu=syncs.counts.get("imu", 0) / n_i,
+               smoother=syncs.counts.get("smoother", 0) / max(n_s, 1),
+               slide=syncs.counts.get("slide", 0) / max(n_sl, 1))
+    warm = {k: v for k, v in syncs.counts.items() if k.startswith("warm-up")}
+    print(f"[vio] host syncs from frame {VIO_WARMUP} on: {per['frame']:.3f} a frame ({n_f}), "
+          f"{per['imu']:.4f} an IMU sample ({n_i}), {per['smoother']:.3f} a smoother update "
+          f"({n_s}), {per['slide']:.3f} a slide ({n_sl}); other {syncs.counts.get('other', 0)}; "
+          f"in the first {VIO_WARMUP} frames {warm}")
+    for (kind, site), n in sorted(syncs.sites.items()):
+        print(f"[vio]   {kind}: {n} x {site}")
+    print(f"[vio] peak device memory {peak / 2**20:.1f} MiB ({(peak - base_bytes) / 2**20:.1f} "
+          f"MiB above the start); {smi}")
+    expect = dict(frame=vse.FRAME_SYNCS, imu=vse.IMU_SYNCS, smoother=vse.SMOOTHER_SYNCS,
+                  slide=vse.SLIDE_SYNCS)
+    for k, v in expect.items():
+        if per[k] > v:
+            raise AssertionError(f"vio: {per[k]} host syncs a {k}, more than the {v} stated")
+    if syncs.counts.get("other", 0):
+        raise AssertionError(f"vio: {syncs.counts['other']} host syncs outside the estimator")
+
+    # The state stays on the card.
+    for name, t in (*est.window._asdict().items(), *est.ekf_state._asdict().items()):
+        if t.device.type != torch.device(dev).type:
+            raise AssertionError(f"vio: {name} is on {t.device}")
+    if slides[0] < VIO_MIN_SLIDES:
+        raise AssertionError(f"vio: the window slid {slides[0]} times")
+
+    # Accuracy against the groundtruth (unaligned, as the mission matrix scores).
+    traj = {}
+    for t_ns, R, p in solves:
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R.double().cpu().numpy(), p.double().cpu().numpy()
+        traj[t_ns] = T
+    ts = np.array(sorted(traj), np.int64)
+    rep = evaluate_trajectory(ts, np.stack([traj[t] for t in ts]), gt, align="none",
+                              rpe_deltas_s=[0.5])
+    rpe = rep["rpe"].get("0.5s", {})
+    finite = all(np.isfinite(T).all() for T in traj.values())
+    print(f"[vio] smoother trajectory: {len(ts)} poses, ATE {rep['ate_rmse_m']:.4f} m rmse "
+          f"(max {rep['ate_max_m']:.4f}, unaligned), RPE@0.5s {rpe.get('trans_rmse_m', float('nan')):.4f} m, "
+          f"{rpe.get('rot_rmse_deg', float('nan')):.4f} deg; vision available after "
+          f"{sum(modes)} of {n_frames} frames; statuses {sorted(set(statuses))}")
+    if not finite or not rep["ate_rmse_m"] < VIO_MAX_ATE:
+        raise AssertionError(f"vio: ATE {rep['ate_rmse_m']} m (bound {VIO_MAX_ATE})")
+
+    # The first frames again on the CPU.
+    until = gt[VIO_CPU_FRAMES - 1].timestamp
+    cpu = vse.StateEstimator(params, rig, device="cpu")
+    cpu.initialize(gt[0].timestamp, gt[0].world_T_body)
+    t0 = time.perf_counter()
+    c_solves, c_modes, c_statuses, _ = vio_drive(cpu, events, until_ns=until)
+    cpu_wall = time.perf_counter() - t0
+    g_solves = [s for s in solves if s[0] <= until]
+    k = VIO_CPU_FRAMES
+    if c_modes != modes[:k] or c_statuses != statuses[:k]:
+        raise AssertionError(f"vio CPU parity: modes or statuses differ\n{c_modes}\n{modes[:k]}\n"
+                             f"{c_statuses}\n{statuses[:k]}")
+    if [s[0] for s in c_solves] != [s[0] for s in g_solves]:
+        raise AssertionError("vio CPU parity: the smoother ran at other keyposes")
+    dp = max(float((a[2].cpu() - b[2].cpu()).abs().max()) for a, b in zip(c_solves, g_solves))
+    dR = max(float((a[1].cpu() - b[1].cpu()).abs().max()) for a, b in zip(c_solves, g_solves))
+    print(f"[vio] the first {k} frames on the CPU ({cpu_wall:.1f} s): {len(c_solves)} smoother "
+          f"updates at the same keyposes, modes and VO statuses equal, max |p| diff {dp:.3e} m, "
+          f"max |R| diff {dR:.3e} (tolerance {VIO_CPU_TOL})")
+    if not (dp < VIO_CPU_TOL and dR < VIO_CPU_TOL):
+        raise AssertionError(f"vio CPU parity: {dp} m, {dR}")
+
+    vio_stage_times(est, next(m for k, m in reversed(events) if k == "stereo"))
+    lk_row = phase_lk_kernels(calls, "vio lk")["lk_track"]
+    return dict(launches=launches["lk_track"], frames=n_frames,
+                shapes=f"{rig.left.width}x{rig.left.height}, K={trk.capacity}, "
+                       f"{trk.lk.max_level + 1} levels, window {trk.lk.window}",
+                **lk_row)
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -2279,6 +2743,7 @@ def main() -> int:
     fleet_lk, fleet_lm = phase_fleet(canvas, rig, rows, dev)
     phase_farm_node(canvas, dev)
     phase_mesher_node(canvas, dev)
+    vio = phase_state_estimator(dev, smi)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
@@ -2290,6 +2755,8 @@ def main() -> int:
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
     # And lk_track's, from the fleet frontend (phase 13).
     rows["lk_track"]["batched"] = dict(cameras=N_CAMERAS, **fleet_lk)
+    # And its calls on the state estimator's path (phase 16), with their launches there.
+    rows["lk_track"]["vio"] = vio
     # And the LM kernels', from the fleet frontend's enhancement (phase 13).
     for k, row in fleet_lm.items():
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)

@@ -13,6 +13,10 @@ such choice the port also offers, the strip-volume build, carries over.
 The state converters keep whatever leading axes the arrays have: a fleet's
 state (``parallel.sharded_pipeline.create_fleet_frontend_state``, a leading
 camera axis on every leaf) converts as one camera's does.
+
+The VIO stack's carried state is the smoother's keypose window, the EKF
+state and the stacked IMU preintegrations; their floating fields keep the
+JAX arrays' dtype unless a ``dtype`` is given.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ from .tracking.lk import LKParams
 from .tracking.stereo_tracker import StereoTrackerParams, StereoTrackerState
 from .tracking.stripe_match import StripeMatcherParams
 from .tracking.tracks import TrackTable
+from .vio.ekf import EkfParams, EkfState
+from .vio.imu_preintegration import ImuCalibration, PreintegratedImu
+from .vio.odometry import OdometryParams
+from .vio.smoother import KeyposeWindow, SmootherConfig
+from .vio.state_estimator import StateEstimatorParams
+from .vio.stereo_frontend import FrontendParams
 
 
 def _scalar(v) -> float:
@@ -170,3 +180,66 @@ def stereo_tracker_state_from_jax(state, device=None) -> StereoTrackerState:
 def landmark_graph_from_jax(graph, device=None) -> LandmarkGraph:
     return LandmarkGraph(weights=_tensor(graph.weights, torch.float32, device),
                          ids=_tensor(graph.ids, torch.int32, device))
+
+
+def smoother_config_from_jax(cfg) -> SmootherConfig:
+    return _fields(SmootherConfig, cfg)
+
+
+def ekf_params_from_jax(params) -> EkfParams:
+    return _fields(EkfParams, params)
+
+
+def imu_calibration_from_jax(calib) -> ImuCalibration:
+    return _fields(ImuCalibration, calib)
+
+
+def odometry_params_from_jax(params) -> OdometryParams:
+    return _fields(OdometryParams, params)
+
+
+def frontend_params_from_jax(params) -> FrontendParams:
+    return _fields(FrontendParams, params, tracker=stereo_tracker_params_from_jax,
+                   odometry=odometry_params_from_jax)
+
+
+def state_estimator_params_from_jax(params) -> StateEstimatorParams:
+    """The engine's params; the arrays (gravity, extrinsics) as float64 copies."""
+    import dataclasses
+
+    nested = dict(frontend=frontend_params_from_jax, smoother=smoother_config_from_jax,
+                  ekf=ekf_params_from_jax, imu_calib=imu_calibration_from_jax)
+    kw = {}
+    for f in dataclasses.fields(StateEstimatorParams):
+        v = getattr(params, f.name)
+        if f.name in nested:
+            kw[f.name] = nested[f.name](v)
+        elif isinstance(v, (bool, int, float)):
+            kw[f.name] = v
+        else:
+            kw[f.name] = np.array(v, dtype=np.float64)
+    return StateEstimatorParams(**kw)
+
+
+def _state_tensor(v, dtype, device) -> torch.Tensor:
+    """A JAX array as a tensor: booleans and integers as they are, floats in
+    ``dtype`` (None: the array's own)."""
+    arr = np.array(v)
+    t = torch.as_tensor(arr)
+    if t.is_floating_point() and dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def keypose_window_from_jax(win, device=None, dtype=None) -> KeyposeWindow:
+    return KeyposeWindow(*(_state_tensor(getattr(win, k), dtype, device)
+                           for k in KeyposeWindow._fields))
+
+
+def ekf_state_from_jax(state, device=None, dtype=None) -> EkfState:
+    return EkfState(*(_state_tensor(getattr(state, k), dtype, device) for k in EkfState._fields))
+
+
+def preintegrated_imu_from_jax(pim, device=None, dtype=None) -> PreintegratedImu:
+    return PreintegratedImu(*(_state_tensor(getattr(pim, k), dtype, device)
+                              for k in PreintegratedImu._fields))
