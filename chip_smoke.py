@@ -142,7 +142,40 @@ disparity and motion, in phases:
    frame's recorded calls at the mission's shapes (bit-identical); it prints
    the frontend ms a frame, the smoother-update ms and the filter-step ms
    (CUDA events around each call; p50 and p95), the syncs and their sites,
-   and the peak device memory.
+   and the peak device memory;
+17. the VIO deployment on phase 16's mission, at the same full size: (a)
+   ``StateEstimatorNode.from_config`` (``fabric/nodes/state_estimator_node.py``)
+   on the card over an ``InProcessBus``, the init pose then the mission's
+   IMU, depth and float32 stereo messages in phase 16's order: ``lk_track``
+   2 launches a frame and no other kernel, its smoother poses equal phase
+   16's bit for bit (the same engine, inputs and order), the filter and
+   smoother poses published, the host syncs a frame and an IMU sample from
+   frame VIO_WARMUP on (a published filter pose is one read-back), node ms
+   a frame (host clock around a stereo publish) and the ATE; ``lk_track``
+   against its twin on one node frame's calls (bit-identical); (b) the node
+   saves with ``save_estimator`` at the first smoother update after
+   VIO_SAVE_SLIDES slides (its ms and the file's size), a fresh node loads
+   it (window and EKF equal the saved ones bit for bit, every tensor on the
+   card) and plays the rest of the mission: ATE below VIO_MAX_ATE; (c) the
+   mission written as an LCM log (``LcmLogWriter``, ``to_lcm``; frames as
+   8-bit ``image_t``) and played by ``dataset_player.run("lcmlog", ...)`` on
+   the card at speed 0: every frame played, frames/s, host syncs a frame
+   (the engine's and the player's filter pose), ATE below VIO_MAX_ATE; (d)
+   ``ThreadedStateEstimator`` on the card (its default stereo queue of 4
+   frames) fed the mission at VIO_THREAD_SPEED times real time: no worker
+   exception (recorded by wrapping the engine's entry points; the wrapper
+   itself prints and goes on), ``lk_track`` 2 launches a frame the vision
+   thread took and no other kernel, the longest gap between two filter
+   outputs from frame VIO_WARMUP on below VIO_MAX_FILTER_GAP_MS (the first
+   frames make each thread's one-time CUDA set-up), ATE below VIO_MAX_ATE;
+   it prints the filter step's p50 and p95 (host clock), the longest gap
+   while a smoother update is in flight and the garbage collections while
+   the threads ran; (e) ``trilaterate``
+   (``vio/trilateration.py``) on the card in float64 and float32, 8 beacons
+   with one masked: 20 ``lm_solve_small`` and 22 ``lm_row_sum`` launches,
+   each against its twin bit for bit (float64: the kernels' double build),
+   with their times beside ``torch.linalg.solve_ex`` and ``torch.sum``, and
+   the fix against the CPU's.
 
 The enhanced image of a batched camera is held to the one-camera step's as
 the port's CPU tests hold it to the reference: the median and the 99.9th
@@ -171,7 +204,10 @@ the volume elements its plain twin reads on this run's seed); for the match
 and ``lk_track`` also their chains of dependent operations (the match's in
 units of the chase's latency in this run). ``lk_track``'s row also carries,
 under ``vio``, its launches, times and bound on the state estimator's path
-(phase 16).
+(phase 16), and under ``vio_node`` its launches on the node's (phase 17);
+the LM kernels' rows carry, under ``trilaterate``, their float64 and
+float32 launches, times and bounds there (operations at 34 TFLOP/s for
+float64, the H100 SXM's rate outside the tensor cores).
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
@@ -181,6 +217,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import gc
+import inspect
 import json
 import re
 import statistics
@@ -201,7 +238,8 @@ from ocean_perception_tpu_torch.config.bindings import load_mesher_params, load_
 from ocean_perception_tpu_torch.config.yaml_parser import YamlParser
 from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
 from ocean_perception_tpu_torch.fabric import shm_ring
-from ocean_perception_tpu_torch.fabric.messages import (ImageMessage, ShmImageHeader,
+from ocean_perception_tpu_torch.fabric.messages import (DepthMessage, ImageMessage, ImuMessage,
+                                                        PoseStampedMessage, ShmImageHeader,
                                                         StereoImageMessage)
 from ocean_perception_tpu_torch.fabric.nodes import farm_perception_node as fpn
 from ocean_perception_tpu_torch.fabric.nodes import object_mesher_node as omn
@@ -269,10 +307,11 @@ SOURCES = {
     "lm_row_sum": ("ocean_perception_tpu_torch/csrc/lm_solve.cu",
                    "none (XLA's jnp.sum, ocean_perception_tpu/ops/lm.py:44)"),
 }
-# H100 SXM peaks (NVIDIA's data sheet): memory rate and float32 rate outside
-# the tensor cores.
+# H100 SXM peaks (NVIDIA's data sheet): memory rate, and the float32 and
+# float64 rates outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12
 # Resident blocks an SM of pm_match's cooperative grid (csrc/patchmatch.cu,
 # kMinBlocks).
 MATCH_BLOCKS_PER_SM = 3
@@ -503,10 +542,11 @@ def require_launches(tag: str, launches: dict, per_frame: dict, frames: int) -> 
         raise AssertionError(f"{tag}: launches {launches} over {frames} frames, expected {want}")
 
 
-def bound(nbytes: float, flops: float = 0.0) -> dict:
+def bound(nbytes: float, flops: float = 0.0, peak_ops: float = PEAK_F32_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    operations over the rate of their type (float32 unless peak_ops says
+    otherwise), whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_ops
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -1577,19 +1617,22 @@ def record_lm_calls(fn) -> dict:
 
 def lm_bound(name: str, args: tuple) -> dict:
     """Bound of one launch: its inputs read and outputs written once, and
-    its operations (a multiply and an add each counted): for lm_solve_small
-    the P(P+1)/2 + P dot products of N terms, the damping, the elimination
-    and the back substitution; for lm_row_sum N - 1 adds a row."""
+    its operations (a multiply and an add each counted) at the rate of their
+    type: for lm_solve_small the P(P+1)/2 + P dot products of N terms, the
+    damping, the elimination and the back substitution; for lm_row_sum
+    N - 1 adds a row."""
+    size = args[0].element_size()
+    peak = PEAK_F64_PER_S if args[0].dtype == torch.float64 else PEAK_F32_PER_S
     if name == "lm_row_sum":
         (x,) = args
         rows, n = x.numel() // x.shape[-1], x.shape[-1]
-        return bound(4 * (x.numel() + rows), rows * (n - 1))
+        return bound(size * (x.numel() + rows), rows * (n - 1), peak)
     J, r, lam, _ = args
     N, P = J.shape[-2], J.shape[-1]
     M = J.numel() // (N * P)
     ops = (2 * N * (P * (P + 1) // 2 + P) + 2 * P * P
            + sum((P - k - 1) * (3 + 2 * (P - k - 1)) for k in range(P)) + P * P)
-    return bound(4 * (J.numel() + r.numel() + lam.numel() + M * P), M * ops)
+    return bound(size * (J.numel() + r.numel() + lam.numel() + M * P), M * ops, peak)
 
 
 def library_ms(fn, n: int = N_TIMED) -> float | None:
@@ -2352,9 +2395,11 @@ def vio_mission(rig, n_gravity, seconds: float = VIO_SECONDS, disp: float = VIO_
 
 class SyncLog:
     """Every host sync under torch.cuda.set_sync_debug_mode, by where it came
-    from in the estimator: a slide's eigh, the smoother's readout, the
-    filter, or the frame; those made before ``armed`` is set count as
-    warm-up (the device constants' caches fill once, at their first use)."""
+    from in the estimator: a checkpoint's read-back, a slide's eigh, the
+    smoother's readout, the filter (with a node's published filter pose), or
+    the frame (with the dataset player's filter pose); those made before
+    ``armed`` is set count as warm-up (the device constants' caches fill
+    once, at their first use)."""
 
     def __init__(self):
         self.counts = {}
@@ -2366,10 +2411,11 @@ class SyncLog:
             return
         stack = traceback.extract_stack()[:-1]
         names = {f.name for f in stack}
-        kind = ("slide" if "slide_window" in names else
+        kind = ("checkpoint" if "save_estimator" in names else
+                "slide" if "slide_window" in names else
                 "smoother" if "_run_smoother" in names else
-                "imu" if "receive_imu" in names else
-                "frame" if "receive_stereo" in names else "other")
+                "imu" if names & {"receive_imu", "_on_imu"} else
+                "frame" if names & {"receive_stereo", "_on_stereo", "on_stereo"} else "other")
         if not self.armed:
             kind = "warm-up " + kind
         self.counts[kind] = self.counts.get(kind, 0) + 1
@@ -2696,10 +2742,473 @@ def phase_state_estimator(dev, smi: str) -> dict:
 
     vio_stage_times(est, next(m for k, m in reversed(events) if k == "stereo"))
     lk_row = phase_lk_kernels(calls, "vio lk")["lk_track"]
-    return dict(launches=launches["lk_track"], frames=n_frames,
-                shapes=f"{rig.left.width}x{rig.left.height}, K={trk.capacity}, "
-                       f"{trk.lk.max_level + 1} levels, window {trk.lk.window}",
-                **lk_row)
+    row = dict(launches=launches["lk_track"], frames=n_frames,
+               shapes=f"{rig.left.width}x{rig.left.height}, K={trk.capacity}, "
+                      f"{trk.lk.max_level + 1} levels, window {trk.lk.window}",
+               **lk_row)
+    return row, dict(params=params, rig=rig, events=events, gt=gt, solves=solves,
+                     n_frames=n_frames)
+
+
+VIO_SAVE_SLIDES = 10    # phase 17 (b): the node saves at the first update after this many slides
+# Phase 17 (d): the mission fed in real time (at twice real time the vision
+# thread is over its budget of a frame period; PERF.md §6), and the bound on
+# the longest gap between two filter outputs from frame VIO_WARMUP on: 20 IMU
+# periods, about twice the longest seen in runs without a stall. Before the wrapper
+# froze the heap, a full garbage collection held both threads for
+# 0.85-3.35 s, and the queue of 4 frames dropped a run of them (PERF.md §6).
+VIO_THREAD_SPEED = 1.0
+VIO_MAX_FILTER_GAP_MS = 100.0
+TRI_BEACONS, TRI_MASKED = 8, 5  # phase 17 (e): trilaterate's beacons, and the one masked
+
+
+def vio_message(kind: str, m):
+    """A mission event as the message a sensor driver publishes for it
+    (float32 frames as raw images)."""
+    if kind == "imu":
+        return "sensors/imu", ImuMessage(m.timestamp, m.angular_velocity, m.linear_acceleration)
+    if kind == "depth":
+        return "sensors/depth", DepthMessage(m.timestamp, m.depth)
+    return "sensors/stereo", StereoImageMessage(m.timestamp, m.camera_id,
+                                                ImageMessage.from_array(m.timestamp, m.left),
+                                                ImageMessage.from_array(m.timestamp, m.right))
+
+
+def init_pose_message(pose) -> PoseStampedMessage:
+    from ocean_perception_tpu_torch.fabric.nodes.state_estimator_node import matrix_quat
+
+    T = pose.world_T_body
+    return PoseStampedMessage(timestamp=pose.timestamp,
+                              pose=np.concatenate([matrix_quat(T[:3, :3]), T[:3, 3]]))
+
+
+def vio_ate(tag: str, stamped, gt) -> float:
+    """The unaligned ATE (rmse, m) of (t_ns, 4x4 pose) pairs against the
+    mission's groundtruth, printed with RPE@0.5 s; fails above VIO_MAX_ATE."""
+    from ocean_perception_tpu_torch.vio.evaluation import evaluate_trajectory
+
+    traj = dict(stamped)
+    ts = np.array(sorted(traj), np.int64)
+    poses = np.stack([traj[t] for t in ts])
+    rep = evaluate_trajectory(ts, poses, gt, align="none", rpe_deltas_s=[0.5])
+    rpe = rep["rpe"].get("0.5s", {})
+    print(f"[{tag}] {len(ts)} smoother poses, ATE {rep['ate_rmse_m']:.4f} m rmse (max "
+          f"{rep['ate_max_m']:.4f}, unaligned), RPE@0.5s "
+          f"{rpe.get('trans_rmse_m', float('nan')):.4f} m, "
+          f"{rpe.get('rot_rmse_deg', float('nan')):.4f} deg")
+    if not np.isfinite(poses).all() or not rep["ate_rmse_m"] < VIO_MAX_ATE:
+        raise AssertionError(f"{tag}: ATE {rep['ate_rmse_m']} m (bound {VIO_MAX_ATE})")
+    return rep["ate_rmse_m"]
+
+
+def device_poses(solves) -> list:
+    """(t_ns, 4x4) of smoother callbacks' (t_ns, R, p) device tensors."""
+    out = []
+    for t_ns, R, p in solves:
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R.double().cpu().numpy(), p.double().cpu().numpy()
+        out.append((t_ns, T))
+    return out
+
+
+def require_lk_launches(tag: str, launches: dict, n_frames: int) -> None:
+    """A VIO path's launches: lk_track 2 a frame it processed, no other kernel."""
+    if launches["lk_track"] != 2 * n_frames or any(
+            v for k, v in launches.items() if k != "lk_track"):
+        raise AssertionError(f"{tag} launches {launches}: expected lk_track 2 a frame "
+                             f"({n_frames} frames) and nothing else")
+
+
+def check_lk_calls(calls: list, tag: str) -> float:
+    """lk_track against lk_track_plain on recorded calls, bit for bit."""
+    err = 0.0
+    for direction, (_, args, kwargs, _) in zip(("forward", "backward"), calls):
+        for a, b in zip(lk.lk_track(*args, **kwargs), lk.lk_track_plain(*args, **kwargs)):
+            fa, fb = a.float().nan_to_num(-1e30), b.float().nan_to_num(-1e30)
+            require_equal(f"{tag} lk_track {direction}", fa, fb)
+            err = max(err, max_abs(fa, fb))
+    print(f"[{tag}] lk_track: the {len(calls)} calls of one node frame bit-identical to "
+          f"lk_track_plain")
+    return err
+
+
+def phase_vio_node(dev, mission, tmp: Path) -> dict:
+    """Phase 17 (a) and (b): the state estimator node over an InProcessBus,
+    then a fresh node resumed from its checkpoint."""
+    from ocean_perception_tpu_torch.fabric.nodes.state_estimator_node import StateEstimatorNode
+    from ocean_perception_tpu_torch.vio import checkpoint as vck
+    from ocean_perception_tpu_torch.vio import state_estimator as vse
+
+    events, gt = mission["events"], mission["gt"]
+    bus = InProcessBus()
+    node = StateEstimatorNode.from_config(bus, VIO_YAML, FARMSIM_YAML, device=dev)
+    published = {"vio/pose/filter": 0, "vio/pose/smoother": 0}
+    for ch in published:
+        bus.subscribe(ch, lambda c, _m: published.__setitem__(c, published[c] + 1))
+    est = node.est
+    solves, slides, saved, at = [], [0], {}, [0]
+    est.smoother_callbacks.append(lambda r: solves.append((est._last_smoother_t_ns, r.R, r.p)))
+
+    def save_once(_r):
+        if saved or slides[0] < VIO_SAVE_SLIDES:
+            return
+        path = tmp / "vio_node.npz"
+        t0 = time.perf_counter()
+        vck.save_estimator(est, str(path))
+        saved.update(ms=1e3 * (time.perf_counter() - t0), bytes=path.stat().st_size, path=path,
+                     event=at[0], window=est.window, ekf=est.ekf_state, n_keyposes=est._n_keyposes,
+                     ekf_time=est._ekf_time)
+
+    est.smoother_callbacks.append(save_once)
+    orig_slide = vse.slide_window
+
+    def counting_slide(*a, **k):
+        slides[0] += 1
+        return orig_slide(*a, **k)
+
+    frame_ms, frame, calls, counted = [], 0, None, {}
+    cuda.reset_launches()
+    vse.slide_window = counting_slide
+    t_run = time.perf_counter()
+    try:
+        bus.publish("vio/init_pose", init_pose_message(gt[0]))
+        with SyncLog() as syncs:
+            for i, (kind, m) in enumerate(events):
+                at[0] = i
+                ch, msg = vio_message(kind, m)
+                if kind != "stereo":
+                    bus.publish(ch, msg)
+                    continue
+                if frame == VIO_WARMUP:
+                    syncs.armed = True
+                    counted = dict(imu=sum(k == "imu" for k, _ in events[:i]))
+                t0 = time.perf_counter()
+                if frame == VIO_LK_FRAME:
+                    calls = record_lk_calls(lambda: bus.publish(ch, msg))
+                else:
+                    bus.publish(ch, msg)
+                frame_ms.append(1e3 * (time.perf_counter() - t0))
+                frame += 1
+    finally:
+        vse.slide_window = orig_slide
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = dict(cuda.LAUNCHES)
+    n_frames = mission["n_frames"]
+    require_lk_launches("vio node", launches, n_frames)
+
+    # The same engine, inputs and order as phase 16: the same smoother poses.
+    want = mission["solves"]
+    if [s[0] for s in solves] != [s[0] for s in want]:
+        raise AssertionError("vio node: the smoother ran at other keyposes than phase 16's")
+    for (t_ns, R, p), (_, R16, p16) in zip(solves, want):
+        require_equal(f"vio node smoother R at {t_ns}", R, R16)
+        require_equal(f"vio node smoother p at {t_ns}", p, p16)
+    n_imu = sum(k == "imu" for k, _ in events)
+    n_f, n_i = n_frames - VIO_WARMUP, n_imu - counted["imu"]
+    per_frame = syncs.counts.get("frame", 0) / n_f
+    per_imu = syncs.counts.get("imu", 0) / n_i
+    print(f"[vio node] StateEstimatorNode.from_config({VIO_YAML}, {FARMSIM_YAML}, device={dev}) "
+          f"over an InProcessBus: {n_frames} frames, {n_imu} IMU samples in {wall:.1f} s; "
+          f"published {published['vio/pose/filter']} filter and "
+          f"{published['vio/pose/smoother']} smoother poses; {len(solves)} smoother poses equal "
+          f"phase 16's bit for bit; launches {launches}")
+    print(f"[vio node] node ms a frame (publish to return, host clock): {percentiles(frame_ms)}")
+    print(f"[vio node] host syncs from frame {VIO_WARMUP} on: {per_frame:.3f} a frame ({n_f}), "
+          f"{per_imu:.4f} an IMU sample ({n_i}; a published filter pose is one); by kind "
+          f"{syncs.counts}")
+    for (kind, site), n in sorted(syncs.sites.items()):
+        print(f"[vio node]   {kind}: {n} x {site}")
+    if per_frame > vse.FRAME_SYNCS or syncs.counts.get("other", 0):
+        raise AssertionError(f"vio node: {per_frame} host syncs a frame, "
+                             f"{syncs.counts.get('other', 0)} elsewhere")
+    if published["vio/pose/smoother"] != len(solves):
+        raise AssertionError(f"vio node: {published['vio/pose/smoother']} smoother poses "
+                             f"published for {len(solves)} updates")
+    ate = vio_ate("vio node", device_poses(solves), gt)
+
+    # (b) A fresh node resumed from the checkpoint saved after the 10th slide.
+    if not saved:
+        raise AssertionError(f"vio node: no checkpoint ({slides[0]} slides)")
+    bus2 = InProcessBus()
+    node2 = StateEstimatorNode.from_config(bus2, VIO_YAML, FARMSIM_YAML, device=dev)
+    t0 = time.perf_counter()
+    vck.load_estimator(node2.est, str(saved["path"]))
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    node2._init.set()
+    for name, a, b in ([("window." + k, v, getattr(saved["window"], k))
+                        for k, v in node2.est.window._asdict().items()]
+                       + [("ekf." + k, v, getattr(saved["ekf"], k))
+                          for k, v in node2.est.ekf_state._asdict().items()]):
+        if a.device.type != torch.device(dev).type:
+            raise AssertionError(f"vio resume: {name} loaded on {a.device}")
+        require_equal(f"vio resume {name}", a, b)
+    if (node2.est._n_keyposes, node2.est._ekf_time) != (saved["n_keyposes"], saved["ekf_time"]):
+        raise AssertionError("vio resume: counters differ from the saved node's")
+    resumed = []
+    node2.est.smoother_callbacks.append(
+        lambda r: resumed.append((node2.est._last_smoother_t_ns, r.R, r.p)))
+    rest = events[saved["event"] + 1:]
+    for kind, m in rest:
+        bus2.publish(*vio_message(kind, m))
+    torch.cuda.synchronize()
+    print(f"[vio resume] save_estimator after slide {VIO_SAVE_SLIDES} (at "
+          f"{events[saved['event']][1].timestamp * 1e-9:.2f} s of the mission): "
+          f"{saved['ms']:.3f} ms, {saved['bytes']} bytes; load_estimator {load_ms:.3f} ms, window "
+          f"and EKF equal the saved ones bit for bit, every tensor on the card; then "
+          f"{sum(k == 'stereo' for k, _ in rest)} more frames")
+    resumed_ate = vio_ate("vio resume", device_poses(resumed), gt)
+    return dict(lk_calls=calls, ate=ate, resumed_ate=resumed_ate,
+                lk_track=dict(launches=launches["lk_track"], frames=n_frames,
+                              max_abs_err=check_lk_calls(calls, "vio node")))
+
+
+def phase_vio_player(dev, mission, tmp: Path) -> None:
+    """Phase 17 (c): the mission as an LCM log, played by dataset_player."""
+    from ocean_perception_tpu_torch.fabric.lcm_log import LcmLogWriter
+    from ocean_perception_tpu_torch.fabric.lcm_wire import to_lcm
+    from ocean_perception_tpu_torch.fabric.nodes import dataset_player
+
+    events, gt = mission["events"], mission["gt"]
+    path = tmp / "vio_mission.lcmlog"
+    t0 = time.perf_counter()
+    with LcmLogWriter(str(path)) as w:
+        for ch, msg in [("vio/init_pose", init_pose_message(gt[0]))] + [
+                vio_message(k, m) for k, m in events]:
+            sd, v = to_lcm(msg)
+            w.write(ch, sd.encode(v), timestamp_us=msg.timestamp // 1000)
+    write_s = time.perf_counter() - t0
+    bus = InProcessBus()
+    frames = []
+    bus.subscribe("vio/pose/filter", lambda _c, m: frames.append(m.timestamp))
+    frames_seen = [0]
+
+    def arm(_c, _m):
+        frames_seen[0] += 1
+        syncs.armed = frames_seen[0] >= VIO_WARMUP
+
+    bus.subscribe("vio/pose/filter", arm)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with SyncLog() as syncs:
+        traj = dataset_player.run("lcmlog", str(path), rig=mission["rig"],
+                                  params=mission["params"], speed=0.0, bus=bus, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    n_frames = mission["n_frames"]
+    if len(frames) != n_frames:
+        raise AssertionError(f"vio player: {len(frames)} frames played of {n_frames} written")
+    require_lk_launches("vio player", launches, n_frames)
+    n_f = n_frames - VIO_WARMUP
+    print(f"[vio player] {path.name}: {path.stat().st_size / 2**20:.1f} MiB written in "
+          f"{write_s:.1f} s (frames as 8-bit image_t); dataset_player.run('lcmlog', device={dev}) "
+          f"at speed 0: {len(frames)} frames of {n_frames} in {wall:.1f} s, "
+          f"{len(frames) / wall:.2f} frames/s; host syncs a frame after {VIO_WARMUP}: "
+          f"{syncs.counts.get('frame', 0) / n_f:.3f} (the engine's {1} and the player's "
+          f"filter pose; by kind {syncs.counts}); launches {launches}")
+    vio_ate("vio player", [(s.timestamp, s.world_T_body) for s in traj], gt)
+    return dict(launches=launches["lk_track"], frames=n_frames)
+
+
+def longest_gaps(done: np.ndarray, spans: list) -> list:
+    """For each (start, end) span, the longest gap between consecutive times
+    of done (sorted) from the last one before it to the first one after."""
+    gaps = []
+    for t0, t1 in spans:
+        before, inside, after = done[done < t0], done[(done >= t0) & (done <= t1)], done[done > t1]
+        span = np.concatenate([before[-1:], inside, after[:1]])
+        if span.size >= 2:
+            gaps.append(float(np.diff(span).max()))
+    return gaps
+
+
+def phase_vio_threaded(dev, mission) -> dict:
+    """Phase 17 (d): ThreadedStateEstimator, with its default stereo queue,
+    fed the mission at VIO_THREAD_SPEED times real time. A filter output is a filter step's
+    state complete on the card: a CUDA event recorded on the filter
+    thread's stream after each step (no read-back, which would add a sync
+    a step); a smoother update in flight spans the events recorded on the
+    vision thread's stream before and after it. Times are the events' on
+    the card's clock."""
+    from ocean_perception_tpu_torch.vio.threaded_estimator import ThreadedStateEstimator
+
+    events, gt = mission["events"], mission["gt"]
+    speed = VIO_THREAD_SPEED
+    cuda.reset_launches()
+    te = ThreadedStateEstimator(mission["params"], mission["rig"], device=dev)
+    queue = inspect.signature(ThreadedStateEstimator).parameters["stereo_queue_size"].default
+    core = te.core
+    errors, frames_in = [], [0]
+
+    def recording(name, fn):
+        def call(*a, **k):
+            try:
+                return fn(*a, **k)
+            except BaseException:
+                errors.append((name, traceback.format_exc()))
+                raise
+        return call
+
+    for name in ("receive_stereo", "receive_imu", "receive_depth", "_maybe_imu_keypose",
+                 "poll_imu_keypose"):
+        setattr(core, name, recording(name, getattr(core, name)))
+    stereo = core.receive_stereo
+    core.receive_stereo = lambda m: (frames_in.__setitem__(0, frames_in[0] + 1), stereo(m))[1]
+    outputs, updates, steps, host_done, host_updates = [], [], [], [], []
+    run_smoother, filter_step = core._run_smoother, core._filter_predict_update
+
+    def marker():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed_update(*a):
+        start, t0 = marker(), time.perf_counter()
+        run_smoother(*a)
+        updates.append((start, marker()))
+        host_updates.append((t0, time.perf_counter()))
+
+    def timed_step(*a):
+        t0 = time.perf_counter()
+        filter_step(*a)
+        outputs.append(marker())
+        host_done.append(time.perf_counter())
+        steps.append(1e3 * (host_done[-1] - t0))
+
+    core._run_smoother, core._filter_predict_update = timed_update, timed_step
+    solves = []
+    te.smoother_callbacks.append(lambda r: solves.append((core._last_smoother_t_ns, r.R, r.p)))
+    te.initialize(gt[0].timestamp, gt[0].world_T_body)
+    # The interpreter's garbage collections while the threads run: (gen, s).
+    collections, gc_start = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            collections.append((info["generation"], time.perf_counter() - gc_start[0]))
+
+    base = marker()
+    t_wall0, t_ns0 = time.perf_counter(), events[0][1].timestamp
+    feed = {"imu": te.receive_imu, "depth": te.receive_depth, "stereo": te.receive_stereo}
+    gc.callbacks.append(on_gc)
+    try:
+        for kind, m in events:
+            delay = (m.timestamp - t_ns0) * 1e-9 / speed - (time.perf_counter() - t_wall0)
+            if delay > 0:
+                time.sleep(delay)
+            feed[kind](m)
+        fed_s = time.perf_counter() - t_wall0
+        idle = te.wait_idle(timeout=300)
+    finally:
+        gc.callbacks.remove(on_gc)
+        te.shutdown()
+    torch.cuda.synchronize()
+    drained_s = time.perf_counter() - t_wall0
+    launches = dict(cuda.LAUNCHES)
+    if errors or not idle:
+        raise AssertionError(f"vio threaded: idle {idle}, {len(errors)} worker exceptions:\n"
+                             + "\n".join(f"{n}: {tb}" for n, tb in errors[:3]))
+    done = np.array([base.elapsed_time(ev) for ev in outputs])
+    spans = [(base.elapsed_time(a), base.elapsed_time(b)) for a, b in updates]
+    gaps = longest_gaps(done, spans)
+    # The same on the host's clock: the filter thread's calls returning.
+    host_gaps = longest_gaps(1e3 * np.asarray(host_done),
+                             [(1e3 * a, 1e3 * b) for a, b in host_updates])
+    n_frames, n_imu = mission["n_frames"], sum(k == "imu" for k, _ in events)
+    print(f"[vio threaded] ThreadedStateEstimator(device={dev}), the mission fed at "
+          f"{speed:g}x real time: fed in {fed_s:.1f} s, drained in {drained_s:.1f} s; "
+          f"the vision thread took {frames_in[0]} of {n_frames} frames (its queue of {queue} drops "
+          f"the oldest), {len(spans)} smoother updates; {len(outputs)} filter steps of {n_imu} IMU "
+          f"samples; no worker exception; launches {launches}")
+    print(f"[vio threaded] filter step ms (host clock, the filter thread's call): "
+          f"{percentiles(steps)}; between consecutive filter outputs on the card: "
+          f"{percentiles(np.diff(done))}")
+    if gaps:
+        print(f"[vio threaded] the longest gap between two filter outputs while a smoother "
+              f"update is in flight: {max(gaps):.3f} ms (median over the {len(gaps)} updates "
+              f"{statistics.median(gaps):.3f} ms) against the {VIO_IMU_NS / 1e6:.0f} ms IMU "
+              f"period ({VIO_IMU_NS / 1e6 / speed:g} ms of wall time at "
+              f"{speed:g}x); update ms on the card "
+              f"{percentiles([b - a for a, b in spans])}; on the host's clock, the longest gap "
+              f"between two filter calls returning while an update runs {max(host_gaps):.3f} ms "
+              f"(median {statistics.median(host_gaps):.3f})")
+    by_gen = {g: [t for gg, t in collections if gg == g] for g in range(3)}
+    print(f"[vio threaded] garbage collections while the threads ran (heap frozen at their "
+          f"start): " + ", ".join(f"generation {g} {len(t)}, longest {1e3 * max(t, default=0):.3f} ms"
+                                  for g, t in by_gen.items()))
+    # From the IMU sample before frame VIO_WARMUP on: each thread's first
+    # frames make its one-time CUDA set-up (handles, first launches).
+    frame_at = [i for i, (k, _) in enumerate(events) if k == "stereo"]
+    warm = sum(k == "imu" for k, _ in events[:frame_at[VIO_WARMUP]])
+    gaps_all = np.diff(done)
+    at = int(gaps_all.argmax())
+    longest = float(gaps_all[warm:].max())
+    print(f"[vio threaded] the longest gap between two filter outputs: {gaps_all[at]:.3f} ms "
+          f"after filter output {at} ({at * VIO_IMU_NS * 1e-9:.2f} s into the mission); from frame "
+          f"{VIO_WARMUP} on {longest:.3f} ms (bound {VIO_MAX_FILTER_GAP_MS:g} ms)")
+    if longest > VIO_MAX_FILTER_GAP_MS:
+        raise AssertionError(f"vio threaded: the filter stopped for {longest:.3f} ms "
+                             f"(bound {VIO_MAX_FILTER_GAP_MS} ms)")
+    require_lk_launches("vio threaded", launches, frames_in[0])
+    if len(solves) < 2:
+        raise AssertionError(f"vio threaded: {len(solves)} smoother updates")
+    vio_ate("vio threaded", device_poses(solves), gt)
+    return dict(launches=launches["lk_track"], frames=frames_in[0])
+
+
+def phase_trilateration(dev) -> dict:
+    """Phase 17 (e): trilaterate on the card in float64 and float32 (8
+    beacons, one masked): its lm_solve_small and lm_row_sum launches against
+    their twins, bit for bit, with their times beside torch.linalg.solve_ex
+    and torch.sum (phase_lm_kernels), and the fix against the CPU's."""
+    from ocean_perception_tpu_torch.vio.trilateration import trilaterate
+
+    rng = np.random.default_rng(8)
+    p_true = np.array([3.0, -4.0, -12.0])
+    beacons = rng.uniform(-50, 50, (TRI_BEACONS, 3))
+    ranges = np.linalg.norm(beacons - p_true, axis=1) + rng.normal(0, 0.01, TRI_BEACONS)
+    mask = np.ones(TRI_BEACONS, bool)
+    mask[TRI_MASKED] = False
+    ranges[TRI_MASKED] = 1e3  # a masked outlier must not move the fix
+    rows = {"lm_solve_small": {}, "lm_row_sum": {}}
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        args = [torch.as_tensor(beacons, dtype=dtype), torch.as_tensor(ranges, dtype=dtype),
+                torch.full((TRI_BEACONS,), 0.01, dtype=dtype), torch.as_tensor(mask)]
+        on_card = [a.to(dev) for a in args]
+        out = []
+        cuda.reset_launches()
+        calls = record_lm_calls(lambda: out.append(trilaterate(*on_card)))
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        res, cpu = out[0], trilaterate(*args)
+        dp = float((res.position.cpu() - cpu.position).abs().max())
+        err = float(np.abs(res.position.double().cpu().numpy() - p_true).max())
+        print(f"[trilaterate {str(dtype)[6:]}] {TRI_BEACONS} beacons, beacon {TRI_MASKED} masked: "
+              f"launches {launches}; fix {err:.4f} m from the truth, success "
+              f"{bool(res.success)}; card vs CPU max |position diff| {dp:.3e} (tolerance {tol})")
+        if not (bool(res.success) and err < 0.1 and dp < tol
+                and res.position.dtype == dtype
+                and res.position.device.type == torch.device(dev).type):
+            raise AssertionError(f"trilaterate {dtype}: fix {err}, card vs CPU {dp}")
+        if launches["lm_solve_small"] != 20 or launches["lm_row_sum"] != 22:
+            raise AssertionError(f"trilaterate {dtype}: launches {launches}")
+        for name, row in phase_lm_kernels(calls, f" trilaterate {str(dtype)[6:]}").items():
+            rows[name][str(dtype)[6:]] = dict(launches=launches[name], **row)
+    return rows
+
+
+def phase_vio_deploy(dev, mission) -> dict:
+    """Phase 17: the VIO deployment at the shipped config's full size, on
+    phase 16's mission (see the module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        node = phase_vio_node(dev, mission, Path(tmp))
+        player = phase_vio_player(dev, mission, Path(tmp))
+    threaded = phase_vio_threaded(dev, mission)
+    return dict(lk_track=dict(node=node["lk_track"], player=player, threaded=threaded),
+                trilaterate=phase_trilateration(dev))
 
 
 def main() -> int:
@@ -2743,7 +3252,8 @@ def main() -> int:
     fleet_lk, fleet_lm = phase_fleet(canvas, rig, rows, dev)
     phase_farm_node(canvas, dev)
     phase_mesher_node(canvas, dev)
-    vio = phase_state_estimator(dev, smi)
+    vio, mission = phase_state_estimator(dev, smi)
+    deploy = phase_vio_deploy(dev, mission)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
@@ -2757,9 +3267,16 @@ def main() -> int:
     rows["lk_track"]["batched"] = dict(cameras=N_CAMERAS, **fleet_lk)
     # And its calls on the state estimator's path (phase 16), with their launches there.
     rows["lk_track"]["vio"] = vio
-    # And the LM kernels', from the fleet frontend's enhancement (phase 13).
+    # And its launches on the state estimator node's, the player's and the
+    # threaded estimator's paths (phase 17 (a), (c), (d)).
+    rows["lk_track"]["vio_node"] = deploy["lk_track"]["node"]
+    rows["lk_track"]["vio_player"] = deploy["lk_track"]["player"]
+    rows["lk_track"]["vio_threaded"] = deploy["lk_track"]["threaded"]
+    # And the LM kernels', from the fleet frontend's enhancement (phase 13),
+    # and from trilaterate in float64 and float32 (phase 17 (e)).
     for k, row in fleet_lm.items():
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
+        rows[k]["trilaterate"] = deploy["trilaterate"][k]
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=launches[k], **{"library_ms": None, **rows[k]})

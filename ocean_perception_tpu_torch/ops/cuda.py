@@ -16,7 +16,9 @@ public functions that dispatch to them (``stereo/cost.py``,
 
 ``lm_solve_small`` and ``lm_row_sum`` (``csrc/lm_solve.cu``) are the
 Levenberg-Marquardt step of the Sea-thru fits and its error sums, in an
-order that does not depend on the batch (``ops/lm.py``).
+order that does not depend on the batch (``ops/lm.py``); a float64 tensor
+launches the double build of the same code (the float64 fits of
+``vio/trilateration.py``), counted under the same name.
 
 ``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
 volume in the two strip layouts; each has its own entry in
@@ -135,6 +137,8 @@ _SIGNATURES = {
     "opt_lm_solve_small": [_P] * 4 + [_I] * 4 + [_P],
     "opt_lm_row_sum": [_P, _P, _I, _I, _P],
 }
+for _name in ("opt_lm_solve_small", "opt_lm_row_sum"):
+    _SIGNATURES[_name + "_f64"] = _SIGNATURES[_name]
 
 
 class _LKLevel(ctypes.Structure):
@@ -387,41 +391,50 @@ def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int
 LM_MAX_P = 16
 
 
+LM_DTYPES = (torch.float32, torch.float64)
+
+
+def _lm_entry(name: str, dtype: torch.dtype):
+    """The float or the double build of an LM launch."""
+    return getattr(library(), name + ("_f64" if dtype == torch.float64 else ""))
+
+
 def lm_solve_small(J, r, lam, marquardt: bool) -> torch.Tensor:
     """Each system's damped LM step, one launch (csrc/lm_solve.cu, a warp
-    a system): (..., N, P) J, (..., N) r and (...) lam give the (..., P)
-    solution of (JtJ + lam * damp) x = -Jtr; see ops/lm.py::lm_step_plain."""
+    a system): (..., N, P) J, (..., N) r and (...) lam, all float32 or all
+    float64, give the (..., P) solution of (JtJ + lam * damp) x = -Jtr; see
+    ops/lm.py::lm_step_plain."""
     if J.ndim < 2:
         raise ValueError(f"J must be (..., N, P), got {tuple(J.shape)}")
     *batch, N, P = J.shape
     if not 1 <= P <= LM_MAX_P:
         raise ValueError(f"lm_solve_small takes 1..{LM_MAX_P} parameters, got {P}")
-    _require(J, "J", (torch.float32,))
-    _require(r, "r", (torch.float32,), (*batch, N))
-    _require(lam, "lam", (torch.float32,), batch)
+    _require(J, "J", LM_DTYPES)
+    _require(r, "r", (J.dtype,), (*batch, N))
+    _require(lam, "lam", (J.dtype,), batch)
     _check_size(J.numel())
-    delta = torch.empty((*batch, P), dtype=torch.float32, device=J.device)
+    delta = torch.empty((*batch, P), dtype=J.dtype, device=J.device)
     with torch.cuda.device(J.device):
-        err = library().opt_lm_solve_small(J.data_ptr(), r.data_ptr(), lam.data_ptr(),
-                                           delta.data_ptr(), math.prod(batch), N, P,
-                                           int(marquardt), _stream(J))
+        err = _lm_entry("opt_lm_solve_small", J.dtype)(
+            J.data_ptr(), r.data_ptr(), lam.data_ptr(), delta.data_ptr(), math.prod(batch), N,
+            P, int(marquardt), _stream(J))
     _check(err, "lm_solve_small")
     LAUNCHES["lm_solve_small"] += 1
     return delta
 
 
 def lm_row_sum(x) -> torch.Tensor:
-    """Sums over the last axis of (..., N) x in the pairwise tree order,
-    one launch (csrc/lm_solve.cu, a thread a row); see
+    """Sums over the last axis of (..., N) x, float32 or float64, in the
+    pairwise tree order, one launch (csrc/lm_solve.cu, a warp a row); see
     ops/lm.py::tree_sum_plain."""
     if x.ndim < 1:
         raise ValueError("x must have a last axis to sum")
-    _require(x, "x", (torch.float32,))
+    _require(x, "x", LM_DTYPES)
     _check_size(x.numel())
-    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    out = torch.empty(x.shape[:-1], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = library().opt_lm_row_sum(x.data_ptr(), out.data_ptr(), out.numel(), x.shape[-1],
-                                       _stream(x))
+        err = _lm_entry("opt_lm_row_sum", x.dtype)(x.data_ptr(), out.data_ptr(), out.numel(),
+                                                   x.shape[-1], _stream(x))
     _check(err, "lm_row_sum")
     LAUNCHES["lm_row_sum"] += 1
     return out

@@ -11,9 +11,17 @@ nothing back to the host (a capture forbids it); its first two calls for
 a signature run by calls on a side stream, which also fills the device
 constants it copies there once. Under an enclosing capture the step runs
 by calls. The JAX package's counterpart is ``jax.jit``.
+
+A capture may run while another thread launches work on its own stream
+(the threaded state estimator captures its smoother graphs mid-mission):
+each capture runs on a stream of its own in ``thread_local`` mode, which
+forbids only the capturing thread's unsafe calls, and without the device
+synchronize that ``torch.cuda.graph`` makes on entry.
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
@@ -48,8 +56,21 @@ class GraphedStep:
         with torch.cuda.stream(side):
             for _ in range(2):
                 self.fn(*args)
-        torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_out = self.fn(*args)
+        # No garbage collection inside the capture: freeing a collected
+        # tensor that another stream used records an event there, which
+        # invalidates the capture (torch.cuda.graph collects before it).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static_out = self.fn(*args)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream().wait_stream(side)
         return graph, static_in, static_out

@@ -24,11 +24,20 @@ once a slide (``SLIDE_SYNCS``); a filter step makes ``IMU_SYNCS`` (none:
 its samples go to the card through pinned memory without blocking). Times
 stay exact on the host: int ns for every keypose match
 (``_keypose_times_ns``), mission-relative seconds in the window.
+
+Threads (``vio/threaded_estimator.py``): ``sync_lock``, when set, is held
+around every change of the EKF state, and by the smoother's filter sync
+from the rewind lookup through the commit, as in the JAX engine; the
+solve's wait runs outside it. On the card the two threads run on two
+streams: every commit of the EKF state records an event, and a thread
+waits for it (and marks the state's tensors as used by its stream) before
+it reads a state the other may have made (``_claim``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import enum
 import functools
@@ -75,7 +84,8 @@ from .smoother import (
     slide_window,
     smoother_result,
 )
-from .stereo_frontend import FrontendParams, FrontendStatus, StereoFrontend, VoResult, to_device
+from .stereo_frontend import (FrontendParams, FrontendStatus, StereoFrontend, VoResult, to_device,
+                              to_host)
 
 # Host syncs the engine makes on a CUDA device (see the module docstring).
 IMU_SYNCS = 0
@@ -88,6 +98,10 @@ _F64 = torch.float64
 # this (its steps past the last valid sample are no-ops): one CUDA graph
 # serves every update of a bucket.
 IMU_STEP_BUCKET = 32
+# The filter's IMU replay after a rewind, on the card: chunks of this many
+# samples, each one replay of one CUDA graph (masked past the last sample),
+# as the JAX engine dispatches its padded replay at once.
+REPLAY_CHUNK = 16
 
 
 class SmootherMode(enum.Enum):
@@ -184,11 +198,11 @@ def _smoother_update(win: KeyposeWindow, calib: ImuCalibration, gravity: torch.T
 
 def _readout_vo(vo: VoResult) -> VoReadout:
     f = torch.float64
-    flat = torch.cat([
+    flat = to_host(torch.cat([
         vo.status.to(f).reshape(1), vo.is_keyframe.to(f).reshape(1),
         vo.T_prev_cur.to(f).reshape(-1), vo.lmk_ids.to(f), vo.lmk_valid.to(f),
         vo.lmk_pixels.to(f).reshape(-1), vo.lmk_disparities.to(f),
-    ]).cpu().numpy()
+    ]))
     K = vo.lmk_ids.shape[0]
     o = 18
     return VoReadout(
@@ -312,6 +326,20 @@ class StateEstimator:
         self.smoother_callbacks: List[Callable[[SmootherResult], None]] = []
         self.filter_callbacks: List[Callable[[StateStamped], None]] = []
         self._last_imu_t: Optional[int] = None
+        # Set by ThreadedStateEstimator: held around every EKF-state mutation
+        # so the vision thread's filter sync and the filter thread's IMU
+        # updates serialize without serializing the (long) smoother solve.
+        # With it set on the card, the EKF state's commits record _ekf_event
+        # for the other thread's stream (see _claim).
+        self.sync_lock = None
+        self._ekf_event: Optional[tuple] = None  # (event, the stream it was recorded on)
+        # Set by ThreadedStateEstimator, whose vision thread lags the filter:
+        # a keypose starts from the EKF snapshot at its own time when the
+        # filter has run past it (_state_at), and a frame counts as arrived
+        # for the VO timeout when it is queued (note_stereo_arrival). Unset,
+        # the JAX engine's rules: the current EKF state, and the time of the
+        # frame being processed.
+        self.vision_lags_filter = False
 
         # Per-stage latency stats (state_estimator.cpp:395-396, 427-428).
         self.stats = StatsTracker("state_estimator")
@@ -324,7 +352,13 @@ class StateEstimator:
         step = functools.partial(_filter_step, params=self.ekf_params, gravity=self._gravity,
                                  q_body_imu=self._q_body_imu)
         self._filter_step = GraphedStep(step) if dev.type == "cuda" else step
+        self._replay_chunk = GraphedStep(functools.partial(
+            ekf_replay_imu, n_gravity=self._gravity, params=self.ekf_params,
+            q_body_imu=self._q_body_imu)) if dev.type == "cuda" else None
         self._smoother_steps: dict = {}
+
+    def _locked(self):
+        return self.sync_lock if self.sync_lock is not None else contextlib.nullcontext()
 
     def _w(self, x) -> torch.Tensor:
         """An array or tensor in the window's dtype on the device."""
@@ -336,9 +370,8 @@ class StateEstimator:
         """External pose initialization (state_estimator_lcm InitializeLcm)."""
         T = to_device(np.asarray(world_T_body, np.float64), self.device, _F64)
         R0, p0 = T[:3, :3], T[:3, 3]
-        self.ekf_state = ekf_initialize(t0=p0, q0=matrix_to_quat(R0), dtype=_F64,
-                                        device=self.device)
-        self._ekf_time = timestamp
+        self._commit_ekf(ekf_initialize(t0=p0, q0=matrix_to_quat(R0), dtype=_F64,
+                                        device=self.device), timestamp)
         self._time_origin_ns = timestamp
         self._push_keypose(
             timestamp, R0, p0, torch.zeros(3, dtype=_F64, device=self.device),
@@ -366,16 +399,17 @@ class StateEstimator:
     def receive_depth(self, m: DepthMeasurement) -> None:
         self.depth_manager.push(m)
         if self.ekf_state is not None and self.params.filter_use_depth:
-            self.ekf_state = ekf_update_depth(self.ekf_state, float(m.depth),
-                                              self._gravity_unit, self.ekf_params)
+            self._commit_ekf(ekf_update_depth(self._claim(self.ekf_state), float(m.depth),
+                                              self._gravity_unit, self.ekf_params))
 
     def receive_range(self, m: RangeMeasurement) -> None:
         self.range_manager.push(m)
         if self.ekf_state is not None and self.params.filter_use_range:
-            self.ekf_state = ekf_update_range(
-                self.ekf_state, float(m.range), to_device(np.asarray(m.point), self.device, _F64),
+            self._commit_ekf(ekf_update_range(
+                self._claim(self.ekf_state), float(m.range),
+                to_device(np.asarray(m.point), self.device, _F64),
                 self.ekf_params, body_t_receiver=self._body_t_receiver,
-            )
+            ))
 
     def receive_mag(self, m: MagMeasurement) -> None:
         self.mag_manager.push(m)
@@ -401,14 +435,25 @@ class StateEstimator:
         if rewind is None:
             # No snapshot at/before the fix: update the current state in
             # place without replay (a replay would double-apply IMU).
-            self.ekf_state = ekf_update_pose(self.ekf_state, t_meas, q_meas, cov_t)
+            self._commit_ekf(ekf_update_pose(self._claim(self.ekf_state), t_meas, q_meas, cov_t))
             return
-        state = ekf_update_pose(rewind[1], t_meas, q_meas, cov_t)
+        state = ekf_update_pose(self._claim(rewind[1]), t_meas, q_meas, cov_t)
         # Replay from the SNAPSHOT's time, not the fix's.
         self._commit_rewound_state(state, rewind[0])
 
+    def note_stereo_arrival(self, timestamp: int) -> None:
+        """A stereo frame has arrived (the VO-timeout check measures the
+        camera's silence from it): the threaded wrapper calls it when it
+        queues a frame, so a backlog on the vision thread is not taken for
+        a silent camera."""
+        if self._last_stereo_t is None or timestamp > self._last_stereo_t:
+            self._last_stereo_t = timestamp
+
     def receive_stereo(self, m: StereoImage) -> None:
-        self._last_stereo_t = m.timestamp
+        if self.vision_lags_filter:
+            self.note_stereo_arrival(m.timestamp)
+        else:
+            self._last_stereo_t = m.timestamp
         host = _readout_vo(self.frontend.track(m.left, m.right))
         self.last_status = host.status
         vision_ok = not (host.status & FrontendStatus.ODOM_ESTIMATION_FAILED) and not (
@@ -459,7 +504,7 @@ class StateEstimator:
         if dt < self.params.min_sec_btw_keyposes:
             return
         imu_rows = self._gather_imu(self._last_keypose_t, timestamp)
-        st = self.ekf_state
+        st = self._state_at(timestamp)
         self._push_keypose(
             timestamp, quat_to_matrix(st.q), st.t, st.v,
             vo_T=None, imu_rows=imu_rows,
@@ -501,7 +546,7 @@ class StateEstimator:
             p = p_prev + R_prev @ T_d[:3, 3]
             v = win.v[prev_slot]
         elif self.ekf_state is not None:
-            st = self.ekf_state
+            st = self._state_at(timestamp)
             R, p, v = quat_to_matrix(st.q), st.t, st.v
         else:
             R, p, v = win.R[prev_slot], win.p[prev_slot], win.v[prev_slot]
@@ -753,20 +798,17 @@ class StateEstimator:
         if self.device.type == "cuda":
             n_steps = min(-(-max(n_steps, 1) // IMU_STEP_BUCKET) * IMU_STEP_BUCKET,
                           self.params.max_imu_per_keypose)
-        step = self._smoother_steps.get(n_steps)
-        if step is None:
-            step = functools.partial(
-                _smoother_update, calib=self.params.imu_calib, gravity=self._gravity_w,
-                gravity_unit=self._gravity_unit_w, config=self._smoother_cfg, n_steps=n_steps)
-            if self.device.type == "cuda":
-                step = self._smoother_steps[n_steps] = GraphedStep(step)
-        R, p, v, bg, ba, r, cov = step(self.window)
+        R, p, v, bg, ba, r, cov = self._smoother_step(n_steps)(self.window)
         self.window = self.window._replace(R=R, p=p, v=v, bg=bg, ba=ba)
         result = smoother_result(self.window, r, cov, self._newest_slot())
-        rewind = self._ekf_history.closest_before(timestamp)
-        state_at = rewind[1] if rewind is not None else self.ekf_state
-        # The readout waits for the solve, so the stat below includes its device work.
+        # The filter's position at the rewind snapshot rides in the solve's
+        # readout (one copy). The readout waits for the solve, so it runs
+        # outside sync_lock; _sync_filter repeats the lookup under the lock
+        # and reads again only if the snapshot changed meanwhile.
+        with self._locked():
+            rewind, state_at = self._rewind(timestamp)
         host = self._readout_smoother(result, state_at)
+        # The readout waited for the solve, so the stat includes its device work.
         self.stats.add("smoother_update_ms", (time.perf_counter() - t0) * 1e3, self.print_stats)
         self._last_smoother_result = result
         self._last_smoother_host = host
@@ -774,27 +816,89 @@ class StateEstimator:
         self._last_smoother_t_ns = timestamp
         for cb in self.smoother_callbacks:
             cb(result)
-        self._sync_filter(timestamp, result, host, rewind)
+        self._sync_filter(timestamp, result, host, (rewind, state_at))
+
+    def _smoother_step(self, n_steps: int):
+        """The smoother update with a preintegration loop of ``n_steps``: by
+        calls on the CPU, on the card a CUDA graph for each bucket."""
+        step = self._smoother_steps.get(n_steps)
+        if step is None:
+            step = functools.partial(
+                _smoother_update, calib=self.params.imu_calib, gravity=self._gravity_w,
+                gravity_unit=self._gravity_unit_w, config=self._smoother_cfg, n_steps=n_steps)
+            if self.device.type == "cuda":
+                step = self._smoother_steps[n_steps] = GraphedStep(step)
+        return step
+
+    def capture_graphs(self) -> None:
+        """On the card, capture now every CUDA graph the engine replays: the
+        filter step, the replay chunk, the smoother update of each bucket
+        and the frontend's odometry, each run once on the present state
+        (outputs discarded). The threaded wrapper calls it before its
+        threads start: a capture runs its step three times by calls, which
+        takes seconds while another thread contends for the interpreter."""
+        if self.device.type != "cuda" or self.ekf_state is None:
+            return
+        dev = self.device
+        x = torch.zeros(7, dtype=_F64, device=dev)
+        self._filter_step(self.ekf_state, x)
+        z = torch.zeros(REPLAY_CHUNK, 3, dtype=_F64, device=dev)
+        self._replay_chunk(self.ekf_state, z[:, 0], z, z, z[:, 0] > 0)
+        for n_steps in range(IMU_STEP_BUCKET, self.params.max_imu_per_keypose + IMU_STEP_BUCKET,
+                             IMU_STEP_BUCKET):
+            self._smoother_step(min(n_steps, self.params.max_imu_per_keypose))(self.window)
+        self.frontend.capture_graphs()
 
     def _readout_smoother(self, result: SmootherResult,
                           state_at: Optional[EkfState]) -> SmootherReadout:
         parts = [result.R.reshape(-1), result.p, result.v, result.cov_newest.reshape(-1)]
         if state_at is not None:
             parts.append(state_at.t.to(result.p.dtype))
-        flat = torch.cat([x.to(_F64) for x in parts]).cpu().numpy()
+        flat = to_host(torch.cat([x.to(_F64) for x in parts]))
         return SmootherReadout(
             R=flat[:9].reshape(3, 3), p=flat[9:12], v=flat[12:15],
             cov_newest=flat[15:240].reshape(15, 15),
             p_filter=flat[240:243] if state_at is not None else None,
         )
 
+    def _state_at(self, timestamp: int) -> EkfState:
+        """The EKF state a keypose at ``timestamp`` starts from: the current
+        one, unless ``vision_lags_filter`` is set and the filter has run past
+        the keypose, then the snapshot closest before it."""
+        with self._locked():
+            state = self.ekf_state
+            if (self.vision_lags_filter and self._ekf_time is not None
+                    and self._ekf_time > timestamp):
+                rewind = self._ekf_history.closest_before(timestamp)
+                if rewind is not None:
+                    state = rewind[1]
+            return self._claim(state)
+
+    def _rewind(self, timestamp: int):
+        """The EKF snapshot closest before ``timestamp`` (None if there is
+        none) and the state the sync compares with: the snapshot's, else
+        the current one."""
+        rewind = self._ekf_history.closest_before(timestamp)
+        state_at = rewind[1] if rewind is not None else self.ekf_state
+        return rewind, self._claim(state_at)
+
     def _sync_filter(self, timestamp: int, result: SmootherResult,
-                            host: SmootherReadout, rewind) -> None:
-        """Rewind -> soft/hard correction -> IMU replay (cpp:496-549)."""
+                     host: SmootherReadout, looked_up) -> None:
+        """Rewind -> soft/hard correction -> IMU replay (cpp:496-549), under
+        ``sync_lock`` from the rewind lookup through the commit."""
+        with self._locked():
+            self._sync_filter_locked(timestamp, result, host, looked_up)
+
+    def _sync_filter_locked(self, timestamp: int, result: SmootherResult,
+                            host: SmootherReadout, looked_up) -> None:
         if self.ekf_state is None:
             return
-        state_at = rewind[1] if rewind is not None else self.ekf_state
-        divergence = float(np.linalg.norm(host.p - host.p_filter))
+        rewind, state_at = self._rewind(timestamp)
+        p_filter = host.p_filter
+        if state_at is not looked_up[1]:
+            # The filter moved the snapshot since the readout: read again.
+            p_filter = to_host(state_at.t)
+        divergence = float(np.linalg.norm(host.p - p_filter))
 
         p_s = result.p.to(_F64)
         q_s = matrix_to_quat(result.R.to(_F64))
@@ -823,25 +927,70 @@ class StateEstimator:
     def _commit_rewound_state(self, state, timestamp: int) -> None:
         """Replay the IMU samples newer than the rewind point onto `state` and
         commit: one copy of the samples to the device, then a predict and an
-        update a sample."""
+        update a sample, by calls on the CPU and on the card a CUDA graph of
+        REPLAY_CHUNK samples a replay (a masked step keeps its state, so
+        the bits are the calls')."""
         self._ekf_history.discard_after(timestamp)
         times, items = self._imu_items_after(timestamp)
         t_cur = timestamp
         if times:
             n = len(times)
-            rows = np.zeros((n, 7))
+            chunked = self._replay_chunk is not None
+            rows = np.zeros((-(-n // REPLAY_CHUNK) * REPLAY_CHUNK if chunked else n, 8))
             for i, (t_m, m) in enumerate(zip(times, items)):
                 rows[i, 0] = max((t_m - t_cur) * 1e-9, 0.0)
                 rows[i, 1:4] = np.asarray(m.angular_velocity)
                 rows[i, 4:7] = np.asarray(m.linear_acceleration)
+                rows[i, 7] = 1.0
                 t_cur = t_m
             d = to_device(rows, self.device, _F64)
-            state = ekf_replay_imu(
-                state, d[:, 0], d[:, 1:4], d[:, 4:7], None, self._gravity, self.ekf_params,
-                q_body_imu=self._q_body_imu,
-            )
+            if chunked:
+                for k in range(0, d.shape[0], REPLAY_CHUNK):
+                    c = d[k:k + REPLAY_CHUNK]
+                    state = self._replay_chunk(state, c[:, 0], c[:, 1:4], c[:, 4:7], c[:, 7] > 0)
+            else:
+                state = ekf_replay_imu(
+                    state, d[:, 0], d[:, 1:4], d[:, 4:7], None, self._gravity, self.ekf_params,
+                    q_body_imu=self._q_body_imu,
+                )
+        self._commit_ekf(state, t_cur)
+
+    def _commit_ekf(self, state: EkfState, timestamp: Optional[int] = None) -> None:
+        """Make ``state`` the EKF state (at ``timestamp``, if given); under
+        ``sync_lock`` on the card, record the event a reader on another
+        stream waits for."""
+        if self.sync_lock is not None and self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            event = torch.cuda.Event()
+            event.record(stream)
+            self._ekf_event = (event, stream)
         self.ekf_state = state
-        self._ekf_time = t_cur
+        if timestamp is not None:
+            self._ekf_time = timestamp
+
+    def _claim(self, state: Optional[EkfState]) -> Optional[EkfState]:
+        """``state``, any EKF state of this engine, made safe to read on this
+        thread's stream: the stream waits for the newest commit's event
+        (every commit waited for the one before, so that covers every state
+        in the history), and the state's tensors are marked as used by it,
+        so the caching allocator does not hand their memory to the stream
+        that made them while this one may still read them. Without
+        ``sync_lock`` on the card, ``state`` as it is; on the stream that made the
+        newest commit, without a wait, and the newest state as it is (this
+        stream made it)."""
+        recorded = self._ekf_event
+        if recorded is None or state is None:
+            return state
+        event, source = recorded
+        stream = torch.cuda.current_stream(self.device)
+        if stream == source:
+            if state is self.ekf_state:
+                return state
+        else:
+            stream.wait_event(event)
+        for t in state:
+            t.record_stream(stream)
+        return state
 
     def _imu_items_after(self, t: int):
         times, items = [], []
@@ -857,9 +1006,8 @@ class StateEstimator:
         dt = 0.0 if self._ekf_time is None else (m.timestamp - self._ekf_time) * 1e-9
         x = to_device(np.concatenate([[max(dt, 0.0)], m.angular_velocity,
                                       m.linear_acceleration]), self.device, _F64)
-        state = self._filter_step(self.ekf_state, x)
-        self.ekf_state = state
-        self._ekf_time = m.timestamp
+        state = self._filter_step(self._claim(self.ekf_state), x)
+        self._commit_ekf(state, m.timestamp)
         self._ekf_history.add(m.timestamp, state)
         if self.filter_callbacks:
             out = self.filter_state()
@@ -870,9 +1018,9 @@ class StateEstimator:
 
     def filter_state(self) -> StateStamped:
         assert self.ekf_state is not None and self._ekf_time is not None
-        st = self.ekf_state
-        flat = torch.cat([quat_to_matrix(st.q).reshape(-1), st.t, st.v,
-                          st.S.reshape(-1)]).cpu().numpy()
+        st = self._claim(self.ekf_state)
+        flat = to_host(torch.cat([quat_to_matrix(st.q).reshape(-1), st.t, st.v,
+                                  st.S.reshape(-1)]))
         T = np.eye(4)
         T[:3, :3] = flat[:9].reshape(3, 3)
         T[:3, 3] = flat[9:12]

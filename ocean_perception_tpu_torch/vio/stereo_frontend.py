@@ -137,6 +137,19 @@ def to_device(x, device, dtype: torch.dtype) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host, one read-back. From the card they go
+    through pinned memory and the host waits on the stream: a copy into
+    pageable memory holds the driver while it waits, and another thread's
+    launches (the threaded estimator's filter) would wait with it."""
+    if not x.is_cuda:
+        return x.numpy()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x, non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
+    return out.numpy()
+
+
 class StereoFrontend:
     """Host-side stateful wrapper (reference StereoFrontend class API) on one
     device: float32 images there, the tracker's pyramid ring sized from the
@@ -160,3 +173,14 @@ class StereoFrontend:
                                        force_keyframe or self._prev_left is None)
         self._prev_left = left
         return vo
+
+    def capture_graphs(self) -> None:
+        """On the card, capture the odometry's CUDA graph now, on zeros of
+        the shapes a frame gives it (outputs discarded)."""
+        if self.device.type != "cuda":
+            return
+        K = self.state.table.capacity
+        z = torch.zeros(K, 3, device=self.device)
+        optimize_odometry(z, z[:, :2], torch.ones(K, device=self.device),
+                          torch.zeros(K, dtype=torch.bool, device=self.device), self.rig,
+                          params=self.params.odometry)

@@ -43,6 +43,18 @@ BASELINE = 0.3
 DISP = FX * BASELINE / 5.0  # a plane at 5 m: 12 px
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load a
+    mission took ten times as long with the pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_of(params, rig):
     return tse.StateEstimator(convert.state_estimator_params_from_jax(params),
                               convert.stereo_camera_from_jax(rig), device="cpu")

@@ -1,6 +1,11 @@
 """The port's StateEstimator on the card: it refuses to run without one, keeps
 its state there, makes the host syncs its module states, and agrees with
-the CPU on a short mission.
+the CPU on a short mission. The deployment around it too: the node, the
+dataset player and the threaded estimator refuse to run without a card; on
+the card a node's IMU step reads nothing back unless it publishes, the
+threaded estimator's CUDA graphs (captured while the other thread runs)
+replay equal to their calls, and the float64 builds of the LM kernels
+(``vio/trilateration.py``'s) equal their twins.
 
 The tests marked ``gpu`` skip without a CUDA device. This file imports no
 JAX, so on a GPU machine without JAX they run with
@@ -28,6 +33,18 @@ from ocean_perception_tpu_torch.vio.stereo_frontend import FrontendParams
 H, W = 160, 240
 FX, BASELINE, DEPTH = 200.0, 0.3, 5.0
 GRAVITY = np.array([0.0, 0.0, -9.81])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load a
+    mission took ten times as long with the pool)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def rig():
@@ -273,3 +290,210 @@ def test_graphed_steps_equal_their_calls(cuda_device):
     for _ in range(2):
         for a, b in zip(graphed(est.ekf_state, x), want):
             assert torch.equal(a, b)
+
+
+# --- the deployment ----------------------------------------------------------
+
+
+def deployment(kind, device=None, log=None):
+    """The node, the threaded estimator, or the dataset player of ``log``,
+    on ``device`` (their default when None)."""
+    kw = {} if device is None else {"device": device}
+    if kind == "node":
+        from ocean_perception_tpu_torch.fabric.nodes.state_estimator_node import (
+            StateEstimatorNode)
+        from ocean_perception_tpu_torch.fabric.pubsub import InProcessBus
+
+        return StateEstimatorNode(InProcessBus(), rig(), params=params(), **kw)
+    if kind == "threaded":
+        from ocean_perception_tpu_torch.vio.threaded_estimator import ThreadedStateEstimator
+
+        return ThreadedStateEstimator(params(), rig(), **kw)
+    from ocean_perception_tpu_torch.fabric.nodes import dataset_player
+
+    return dataset_player.run("lcmlog", log, rig=rig(), params=params(), **kw)
+
+
+@pytest.mark.parametrize("kind", ["node", "player", "threaded"])
+def test_deployment_raises_without_a_card(kind, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ocean_perception_tpu_torch.fabric.lcm_log import LcmLogWriter
+    from ocean_perception_tpu_torch.fabric.lcm_wire import to_lcm
+    from ocean_perception_tpu_torch.fabric.messages import ImuMessage
+
+    log = str(tmp_path / "imu.lcmlog")
+    with LcmLogWriter(log) as w:
+        sd, v = to_lcm(ImuMessage(10_000_000, np.zeros(3), -GRAVITY))
+        w.write("sensors/imu", sd.encode(v), timestamp_us=10_000)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deployment(kind, log=log)
+
+
+def node_messages(events):
+    from ocean_perception_tpu_torch.fabric.messages import (DepthMessage, ImageMessage,
+                                                            ImuMessage, StereoImageMessage)
+
+    for m in events:
+        if isinstance(m, ImuMeasurement):
+            yield "sensors/imu", ImuMessage(m.timestamp, m.angular_velocity,
+                                            m.linear_acceleration)
+        elif isinstance(m, DepthMeasurement):
+            yield "sensors/depth", DepthMessage(m.timestamp, m.depth)
+        else:
+            yield "sensors/stereo", StereoImageMessage(
+                m.timestamp, 0, ImageMessage.from_array(m.timestamp, m.left),
+                ImageMessage.from_array(m.timestamp, m.right))
+
+
+@pytest.mark.gpu
+def test_node_imu_step_syncs_only_to_publish(cuda_device):
+    """An IMU message makes no host sync unless its filter pose is
+    published (1 in 5 at 20 Hz of 100 Hz here), and then one."""
+    from ocean_perception_tpu_torch.fabric.messages import PoseStampedMessage
+
+    node = deployment("node", cuda_device)
+    bus = node.bus
+    published = []
+    bus.subscribe("vio/pose/filter", lambda _c, m: published.append(m.timestamp))
+    bus.publish("vio/init_pose",
+                PoseStampedMessage(timestamp=0, pose=np.array([1.0, 0, 0, 0, 0, 0, 0])))
+    syncs = Syncs()
+    quiet = loud = 0
+    for ch, msg in node_messages(mission(14)):
+        if ch != "sensors/imu" or node.est._n_keyposes < 3:
+            bus.publish(ch, msg)
+            continue
+        before = len(published)
+        n = syncs.run(lambda: bus.publish(ch, msg))
+        if len(published) > before:
+            assert n == 1, syncs.sites
+            loud += 1
+        else:
+            assert n == tse.IMU_SYNCS, syncs.sites
+            quiet += 1
+    assert loud > 0 and quiet >= 3 * loud
+
+
+@pytest.mark.gpu
+def test_threaded_estimator_graphs_equal_calls(cuda_device):
+    """The threaded estimator on the card: its two threads on their own
+    streams, its CUDA graphs captured while the other thread ran; no worker
+    raised, the window slid, and every graph replays equal to its step by
+    calls bit for bit."""
+    from ocean_perception_tpu_torch.vio.threaded_estimator import ThreadedStateEstimator
+
+    te = ThreadedStateEstimator(params(window=4), rig(), device=cuda_device)
+    core = te.core
+    errors = []
+
+    def recording(fn):
+        def call(*a, **k):
+            try:
+                return fn(*a, **k)
+            except BaseException as e:  # noqa: BLE001 — recorded, then raised
+                errors.append(repr(e))
+                raise
+        return call
+
+    for name in ("receive_stereo", "receive_imu", "receive_depth", "_maybe_imu_keypose"):
+        setattr(core, name, recording(getattr(core, name)))
+    solves = []
+    te.smoother_callbacks.append(lambda r: solves.append(r.p.clone()))
+    te.initialize(0, np.eye(4))
+    for m in mission(14):
+        feed(te, m)
+        if isinstance(m, StereoImage):
+            assert te.wait_idle(timeout=120)
+    assert te.wait_idle(timeout=120)
+    te.shutdown()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert core._n_keyposes == 4 and len(solves) > 4
+    assert core._smoother_steps and core._filter_step._graphs
+    for step in core._smoother_steps.values():
+        for a, b in zip(step(core.window), step.fn(core.window)):
+            assert torch.equal(a, b)
+    x = torch.tensor([0.01, 0.02, -0.01, 0.03, 0.1, -0.2, 9.7], dtype=torch.float64,
+                     device=cuda_device)
+    for a, b in zip(core._filter_step(core.ekf_state, x), core._filter_step.fn(core.ekf_state, x)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 3, 64])
+@pytest.mark.parametrize("marquardt", [False, True])
+def test_lm_float64_kernels_match_twins(cuda_device, M, marquardt):
+    """The double builds of lm_solve_small and lm_row_sum equal their twins
+    bit for bit (P=3 as trilateration's, and P=12), on the card and on the
+    CPU, and count as launches of their names."""
+    from ocean_perception_tpu_torch.ops import cuda, lm
+
+    rng = np.random.default_rng(M)
+    for P, N in ((3, 8), (12, 300)):
+        J = torch.as_tensor(rng.normal(size=(M, N, P)) * 10.0 ** rng.uniform(-4, 0, (M, 1, P)))
+        r = torch.as_tensor(rng.normal(size=(M, N)))
+        lam = torch.as_tensor(10.0 ** rng.uniform(-6, 0, M))
+        Jd, rd, lamd = (t.to(cuda_device) for t in (J, r, lam))
+        before = dict(cuda.LAUNCHES)
+        got = cuda.lm_solve_small(Jd, rd, lamd, marquardt)
+        sums = cuda.lm_row_sum(rd)
+        assert got.dtype == sums.dtype == torch.float64
+        assert cuda.LAUNCHES["lm_solve_small"] == before["lm_solve_small"] + 1
+        assert cuda.LAUNCHES["lm_row_sum"] == before["lm_row_sum"] + 1
+        assert torch.equal(got, lm.lm_step_plain(Jd, rd, lamd, marquardt))
+        assert torch.equal(got.cpu(), lm.lm_step_plain(J, r, lam, marquardt))
+        assert torch.equal(sums.cpu(), lm.tree_sum_plain(r))
+    with pytest.raises(ValueError, match="dtype"):
+        cuda.lm_solve_small(Jd, rd.float(), lamd, marquardt)
+
+
+@pytest.mark.gpu
+def test_trilaterate_float64_on_the_card(cuda_device):
+    """trilaterate on the card in float64: its LM runs the double builds,
+    and its fix equals the CPU's within 1e-9 m."""
+    from ocean_perception_tpu_torch.ops import cuda
+    from ocean_perception_tpu_torch.vio.trilateration import trilaterate
+
+    rng = np.random.default_rng(8)
+    p_true = np.array([3.0, -4.0, -12.0])
+    beacons = rng.uniform(-50, 50, (8, 3))
+    ranges = np.linalg.norm(beacons - p_true, axis=1) + rng.normal(0, 0.05, 8)
+    mask = np.ones(8, bool)
+    mask[5] = False
+    args = [torch.as_tensor(beacons), torch.as_tensor(ranges), torch.full((8,), 0.05,
+            dtype=torch.float64), torch.as_tensor(mask)]
+    cuda.reset_launches()
+    got = trilaterate(*(a.to(cuda_device) for a in args))
+    assert cuda.LAUNCHES["lm_solve_small"] == 20 and cuda.LAUNCHES["lm_row_sum"] == 22
+    want = trilaterate(*args)
+    assert got.position.dtype == torch.float64 and bool(got.success)
+    assert float((got.position.cpu() - want.position).abs().max()) < 1e-9
+
+
+@pytest.mark.gpu
+def test_replay_chunks_equal_calls(cuda_device):
+    """On the card the filter's IMU replay after a rewind runs in chunks of
+    REPLAY_CHUNK samples, each a CUDA graph replay masked past the last
+    sample: it equals the replay by calls bit for bit."""
+    from ocean_perception_tpu_torch.vio.ekf import ekf_replay_imu
+
+    est = start(cuda_device)
+    for m in mission(4):
+        feed(est, m)
+    n = 2 * tse.REPLAY_CHUNK + 5
+    rng = np.random.default_rng(3)
+    rows = np.zeros((3 * tse.REPLAY_CHUNK, 8))
+    rows[:n, 0] = 0.005
+    rows[:n, 1:4] = rng.normal(0, 0.05, (n, 3))
+    rows[:n, 4:7] = -GRAVITY + rng.normal(0, 0.2, (n, 3))
+    rows[:n, 7] = 1.0
+    d = torch.as_tensor(rows, device=cuda_device)
+    state = est.ekf_state
+    for k in range(0, d.shape[0], tse.REPLAY_CHUNK):
+        c = d[k:k + tse.REPLAY_CHUNK]
+        state = est._replay_chunk(state, c[:, 0], c[:, 1:4], c[:, 4:7], c[:, 7] > 0)
+    want = ekf_replay_imu(est.ekf_state, d[:n, 0], d[:n, 1:4], d[:n, 4:7], None, est._gravity,
+                          est.ekf_params)
+    for a, b in zip(state, want):
+        assert torch.equal(a, b)
