@@ -175,7 +175,29 @@ disparity and motion, in phases:
    with one masked: 20 ``lm_solve_small`` and 22 ``lm_row_sum`` launches,
    each against its twin bit for bit (float64: the kernels' double build),
    with their times beside ``torch.linalg.solve_ex`` and ``torch.sum``, and
-   the fix against the CPU's.
+   the fix against the CPU's;
+18. one frame across several devices, each played by this card (every mesh
+   entry ``cuda:0``, each with a CUDA stream of its own: the exchanges are
+   ordered by events between streams of one card, and a copy between two
+   cards is not exercised), at 720p with N in SHARD_BLOCKS blocks:
+   ``sharded_patchmatch`` at the step's half resolution (D=64, bf16, 16
+   x-strips, halo 5) with every ``pm_pass`` it launched against its twin
+   on the same inputs (bit-identical), its maps equal bit for bit to the
+   one-device engine with ``chunks_y = N``, ``cost_volume`` N and
+   ``pm_pass`` 12 N launches; ``sharded_perception_step`` (the main path
+   of this phase: launches ``cost_volume`` N, ``pm_pass`` 12 N, the LM
+   kernels an enhancement's, ``pm_match`` none) with its disparity and
+   depth equal bit for bit to ``perception_step`` with ``chunks_y = N``
+   and its enhanced image within the enhance tolerance (below);
+   ``pm_pass``'s device time a launch by kind of pass (profiler, through
+   ``utils/profiling.trace``, whose trace also names each block's work);
+   ms a frame by calls of the sharded step and match against the
+   one-device ones; then the camera split, N_CAMERAS cameras over
+   SHARD_ENTRIES entries: ``multi_camera_step`` (disparity, depth and
+   FleetStats equal to the one-card call bit for bit, ms a call) and
+   ``multi_camera_frontend_step`` over 3 fleet frames at the farm point
+   (every output bit-identical, or a float within 1e-3); and the ported
+   ``dryrun_multichip`` on 4 entries.
 
 The enhanced image of a batched camera is held to the one-camera step's as
 the port's CPU tests hold it to the reference: the median and the 99.9th
@@ -214,10 +236,12 @@ Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
 import inspect
+import io
 import json
 import re
 import statistics
@@ -254,15 +278,22 @@ from ocean_perception_tpu_torch.ops import cuda, lm
 from ocean_perception_tpu_torch.ops.image import (gradient_magnitude, image_pyramid, pyr_down,
                                                   resize, to_grayscale)
 from ocean_perception_tpu_torch.ops.windows import fold_rings
+from ocean_perception_tpu_torch.parallel import stereo_sharded
+from ocean_perception_tpu_torch.parallel.dryrun import dryrun_multichip
+from ocean_perception_tpu_torch.parallel.mesh import make_mesh
 from ocean_perception_tpu_torch.parallel.sharded_pipeline import (create_fleet_frontend_state,
                                                                   multi_camera_frontend_step,
-                                                                  prepare_frames)
+                                                                  multi_camera_step,
+                                                                  prepare_frames,
+                                                                  sharded_perception_step)
+from ocean_perception_tpu_torch.parallel.stereo_sharded import sharded_patchmatch
 from ocean_perception_tpu_torch.stereo import cost as sc
 from ocean_perception_tpu_torch.stereo import patchmatch as pm
 from ocean_perception_tpu_torch.stereo.api import estimate_disparity
 from ocean_perception_tpu_torch.stereo.cost import cost_volume_plain
 from ocean_perception_tpu_torch.tracking import lk
 from ocean_perception_tpu_torch.tracking.stereo_tracker import StereoTrackerState
+from ocean_perception_tpu_torch.utils import profiling
 
 H, W = 720, 1280
 MAX_DISP, SCALE = 128, 2
@@ -296,6 +327,7 @@ SOURCES = {
     "build_volumes": ("ocean_perception_tpu_torch/csrc/volume_build.cu",
                       "ocean_perception_tpu/ops/pallas/volume_build.py:242"),
     "pm_match_strip": (PM_CU, "ocean_perception_tpu/ops/pallas/fused_patchmatch.py:634"),
+    "pm_pass": (PM_CU, "ocean_perception_tpu/ops/pallas/propagate.py:115"),
     "lk_track": ("ocean_perception_tpu_torch/csrc/lk.cu",
                  "ocean_perception_tpu/ops/pallas/lk_prep.py:291 and "
                  "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
@@ -407,8 +439,8 @@ def call_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
-KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|lk_track|lm_solve_small|lm_row_sum)"
-                       r"_kernel")
+KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|pm_pass|lk_track|lm_solve_small|"
+                       r"lm_row_sum)_kernel")
 
 
 def launch_name(kernel: str) -> str | None:
@@ -3211,6 +3243,256 @@ def phase_vio_deploy(dev, mission) -> dict:
                 trilaterate=phase_trilateration(dev))
 
 
+SHARD_BLOCKS = (2, 4)  # phase 18's block counts, each mesh one card's cuda:0 repeated
+SHARD_FRAMES = 3       # frames timed by calls, each configuration of phase 18
+SHARD_ENTRIES = 2      # phase 18's camera split: N_CAMERAS cameras over this many mesh entries
+PASS_KINDS = {("1", "true"): "R+ (refresh)", ("1", "false"): "R-", ("0", "false"): "C+/C-",
+              ("0", "true"): "last C- (mask)"}
+TRACE_DIR = cuda._BUILD / "sharded_trace"  # git-ignored, beside the kernels' build
+
+
+def record_block_passes(fn) -> tuple:
+    """fn() with every pass the sharded match launches recorded: (fn's
+    result, [(block_pass arguments, outputs)])."""
+    calls = []
+    inner = stereo_sharded.block_pass
+
+    def recorded(*args):
+        out = inner(*args)
+        calls.append((args, out))
+        return out
+
+    stereo_sharded.block_pass = recorded
+    try:
+        result = fn()
+    finally:
+        stereo_sharded.block_pass = inner
+    torch.cuda.synchronize()
+    return result, calls
+
+
+def pass_bytes(args) -> float:
+    """The least bytes one pm_pass must move: the fronts it reads (and the
+    noise rows of a refresh) and writes, and one volume element for each
+    distinct pixel its walk steps on within the loop bounds (every pixel of
+    the block for a refresh's lookups and a mask's cost(0))."""
+    C, _, _, _, _, axis, fold, block, p = args[:9]
+    H, W, e, pr = block.n_rows, C.shape[1], C.element_size(), p.patch_radius
+    chunk, row0 = block.chunk, block.row0
+    written = chunk * W * (4 if axis == 0 and fold else 4 + e)
+    if axis == 1:
+        read = chunk * W * (4 + (4 if fold else e))
+        rows = sum(pr <= y <= H - pr - 1 for y in range(row0, row0 + chunk))
+        pixels = rows * max(0, W - 2 * pr - 1)
+    else:
+        first, end = max(row0 - p.halo, 0) - 1, min(row0 + chunk + p.halo, H - 1) + 1
+        read = (min(end, H) - max(first, 0)) * W * (4 + e)
+        lo, hi = max(row0 - p.halo, pr), min(row0 + chunk + p.halo, H - pr - 1)
+        pixels = max(0, hi - lo) * max(0, W - 2 * pr)
+    if fold:
+        pixels = max(pixels, chunk * W)
+    return read + written + pixels * e
+
+
+def check_block_passes(calls: list, tag: str) -> dict:
+    """Each recorded pm_pass against its twin on the same inputs on the card
+    (bit-identical); the twin's mean time a pass; the passes' mean bound."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = [pm._block_pass_plain(*args) for args, _ in calls]
+    end.record()
+    end.synchronize()
+    err = 0.0
+    for (args, ours), ref in zip(calls, plain):
+        for a, b in zip(ours, ref):
+            if (a is None) != (b is None):
+                raise AssertionError(f"{tag}: pm_pass and its twin return different outputs")
+            if a is not None:
+                require_equal(f"{tag} pm_pass (axis {args[5]}, rows {args[7].row0}+)", a, b)
+                err = max(err, max_abs(a, b))
+    nbytes = statistics.mean(pass_bytes(args) for args, _ in calls)
+    # One Python call of each kind of pass (the first of each), the host's
+    # enqueue included; the mean over the kinds.
+    kinds = {(args[5], args[6]): args for args, _ in reversed(calls)}
+    call = statistics.mean(call_ms(lambda a=args: pm.block_pass(*a)) for args in kinds.values())
+    return dict(max_abs_err=err, call_ms=call, plain_ms=start.elapsed_time(end) / len(calls),
+                bytes=nbytes, **bound(nbytes))
+
+
+def pass_device_times(fn, tag: str) -> dict:
+    """pm_pass's device time a launch over one call of fn(), by the
+    profiler (utils/profiling.trace; the trace goes to TRACE_DIR), by kind
+    of pass; and the block regions the call named (Queue.run)."""
+    fn()
+    torch.cuda.synchronize()
+    with profiling.trace(str(TRACE_DIR / tag.replace(" ", "_"))) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds, total, count, regions = {}, 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.key.startswith("block "):
+            regions += e.count
+        if e.device_type != DeviceType.CUDA or launch_name(e.key) != "pm_pass":
+            continue
+        m = re.search(r"pm_pass_kernel<[^,]+, (\d), (true|false)>", e.key)
+        kind = PASS_KINDS[m.groups()] if m else e.key
+        k_total, k_count = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (k_total + e.device_time_total, k_count + e.count)
+        total += e.device_time_total
+        count += e.count
+    print(f"[sharded {tag}] pm_pass by profiler: "
+          + ("not measured" if count == 0 else
+             f"{total / count:.2f} us a launch over {count} launches; "
+             + ", ".join(f"{k} {t / c:.2f} us x{c}" for k, (t, c) in kinds.items()))
+          + f"; {regions} named block regions in the trace")
+    return dict(profiler_ms=total / count / 1e3 if count else "not measured", profiled=count)
+
+
+def phase_sharded(canvas, rig, config, dev) -> dict:
+    """Phase 18: one frame across several devices, each played by this card
+    (see the module docstring); returns pm_pass's row."""
+    print("[sharded] one card stands in for N devices: every mesh entry is cuda:0, each with a "
+          "stream of its own, so the blocks' exchanges are ordered by events between streams of "
+          "one card; a copy between two cards, and an event wait across them, is not exercised "
+          "by this run")
+    left_np, right_np = make_inputs(canvas)
+    left = torch.as_tensor(left_np, device=dev)
+    right = torch.as_tensor(right_np, device=dev)
+    gray_l, gray_r = to_grayscale(left), to_grayscale(right)
+    for _ in range(SCALE.bit_length() - 1):
+        gray_l, gray_r = pyr_down(gray_l), pyr_down(gray_r)
+    pmp = pm.PatchMatchParams(max_disp=MAX_DISP // SCALE, chunks=config.chunks, right_wta=True,
+                              volume_bf16=True)
+    nudged = enhance_underwater(left * np.float32(1 + 2.0**-23),
+                                perception_step(left, right, rig, config, dev).depth,
+                                config.enhance)[0]
+    row = None
+    for n in SHARD_BLOCKS:
+        mesh = make_mesh(axis_names=("strip",), devices=[dev] * n)
+        single_cfg = dataclasses.replace(config, chunks_y=n)
+        per_frame = {"cost_volume": n, "pm_pass": 4 * pmp.iters * n, **PER_ENHANCE}
+
+        # The match alone: its passes against their twins, then against pm_match.
+        ours, calls = record_block_passes(lambda: sharded_patchmatch(gray_l, gray_r, mesh, pmp))
+        checked = check_block_passes(calls, f"N={n}")
+        ref = pm.patchmatch_disparity(gray_l, gray_r, dataclasses.replace(pmp, chunks_y=n))
+        for f in ref._fields:
+            require_equal(f"sharded_patchmatch N={n} {f} vs chunks_y={n}", getattr(ours, f),
+                          getattr(ref, f))
+        cuda.reset_launches()
+        sharded_patchmatch(gray_l, gray_r, mesh, pmp)
+        torch.cuda.synchronize()
+        require_launches(f"sharded_patchmatch N={n}", dict(cuda.LAUNCHES),
+                         {"cost_volume": n, "pm_pass": 4 * pmp.iters * n}, 1)
+
+        # The whole step: the main path of this phase.
+        single = perception_step(left, right, rig, single_cfg, dev)
+        sharded_perception_step(left, right, rig, config, mesh)  # warm-up
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        out = sharded_perception_step(left, right, rig, config, mesh)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        require_launches(f"sharded_perception_step N={n}", launches, per_frame, 1)
+        if out.disparity.shape != (H, W) or out.enhanced_left.shape != (H, W, 3) \
+                or not all(bool(torch.isfinite(t).all()) for t in out):
+            raise AssertionError(f"sharded_perception_step N={n}: bad shapes or non-finite outputs")
+        require_equal(f"sharded_perception_step N={n} disparity", out.disparity, single.disparity)
+        require_equal(f"sharded_perception_step N={n} depth", out.depth, single.depth)
+        line = require_enhance_close(f"sharded N={n}", out.enhanced_left, single.enhanced_left,
+                                     nudged)
+        same = torch.equal(out.enhanced_left, single.enhanced_left)
+        med, frac = accuracy(out.disparity)
+        if not (med < 1.0 and frac > 0.5):
+            raise AssertionError(f"sharded N={n}: median |disp - {TRUE_DISP}| {med:.4f} px, "
+                                 f"valid {frac:.4f}")
+        times = pass_device_times(lambda: sharded_patchmatch(gray_l, gray_r, mesh, pmp),
+                                  f"N={n}")
+        frame = dict(
+            sharded_step=call_ms(lambda: sharded_perception_step(left, right, rig, config, mesh),
+                                 SHARD_FRAMES),
+            single_step=call_ms(lambda: perception_step(left, right, rig, single_cfg, dev),
+                                SHARD_FRAMES),
+            sharded_match=call_ms(lambda: sharded_patchmatch(gray_l, gray_r, mesh, pmp),
+                                  SHARD_FRAMES),
+            single_match=call_ms(lambda: pm.patchmatch_disparity(
+                gray_l, gray_r, dataclasses.replace(pmp, chunks_y=n)), SHARD_FRAMES))
+        print(f"[sharded N={n}] {n} blocks of {H // SCALE // n} internal rows on [cuda:0] x {n}: "
+              f"launches {launches}; disparity and depth equal perception_step with chunks_y={n} "
+              f"bit for bit; enhanced image {'bit-identical' if same else 'within tolerance'} "
+              f"({line}); valid {frac:.4f}, median |d - {TRUE_DISP}| {med:.4f} px; pm_pass "
+              f"equals its twin on all {len(calls)} passes of a frame (call "
+              f"{checked['call_ms'] * 1e3:.1f} us, plain {checked['plain_ms']:.3f} ms a pass, bound {checked['bound_ms'] * 1e3:.3f} us, "
+              f"{checked['bytes'] / 1e6:.3f} MB a pass); ms a frame by calls: sharded step "
+              f"{frame['sharded_step']:.3f} against {frame['single_step']:.3f} single "
+              f"(chunks_y={n}), sharded match {frame['sharded_match']:.3f} against "
+              f"{frame['single_match']:.3f} single")
+        row = dict(launches=launches["pm_pass"], max_abs_err=checked["max_abs_err"],
+                   ms=times["profiler_ms"], device_ms=times["profiler_ms"],
+                   device_method="profiler", call_ms=checked["call_ms"],
+                   plain_ms=checked["plain_ms"],
+                   bound_ms=checked["bound_ms"], bound_by=checked["bound_by"],
+                   blocks=n, frame_ms=frame, **({"n2": row} if row is not None else {}))
+
+    # The camera split: N_CAMERAS cameras over SHARD_ENTRIES entries of one card.
+    cams = make_mesh(axis_names=("cam",), devices=[dev] * SHARD_ENTRIES)
+    pairs = [make_inputs(canvas, i) for i in range(N_CAMERAS)]
+    bl = torch.as_tensor(np.stack([l for l, _ in pairs]), device=dev)
+    br = torch.as_tensor(np.stack([r for _, r in pairs]), device=dev)
+    out, stats = multi_camera_step(bl, br, rig, config, mesh=cams)
+    ref, ref_stats = multi_camera_step(bl, br, rig, config, device=dev)
+    for f in ("disparity", "depth"):
+        require_equal(f"camera split {f}", getattr(out, f), getattr(ref, f))
+    for f in stats._fields:
+        require_equal(f"camera split FleetStats.{f}", getattr(stats, f), getattr(ref_stats, f))
+    same = torch.equal(out.enhanced_left, ref.enhanced_left)
+    if not same:
+        for b in range(N_CAMERAS):
+            require_enhance_close(f"camera split camera {b}", out.enhanced_left[b],
+                                  ref.enhanced_left[b], nudged)
+    split_ms = call_ms(lambda: multi_camera_step(bl, br, rig, config, mesh=cams), SHARD_FRAMES)
+    one_ms = call_ms(lambda: multi_camera_step(bl, br, rig, config, device=dev), SHARD_FRAMES)
+    print(f"[sharded cameras] multi_camera_step, {N_CAMERAS} cameras over {SHARD_ENTRIES} entries "
+          f"of cuda:0: disparity, depth and FleetStats equal the one-card call bit for bit, "
+          f"enhanced {'bit-identical' if same else 'within tolerance'}; {split_ms:.3f} ms a call "
+          f"against {one_ms:.3f} one card")
+
+    fcfg = dataclasses.replace(config, internal_scale=FARM_SCALE)
+    params = ObjectMesherDeviceParams()
+    frames = [tuple(torch.as_tensor(np.stack(side), device=dev) for side in
+                    zip(*[make_mono_u8(canvas, i + FLEET_PHASE * b) for b in range(N_CAMERAS)]))
+              for i in range(3)]
+    results = []
+    for mesh in (cams, None):
+        state, graph = create_fleet_frontend_state(N_CAMERAS, params, image_shape=(H, W),
+                                                   device=dev)
+        prev = to_grayscale(prepare_frames(frames[0][0], dev))
+        for left_u8, right_u8 in frames:
+            fe, prev = multi_camera_frontend_step(state, graph, prev, left_u8, right_u8, rig,
+                                                  fcfg, params, device=dev, mesh=mesh)
+            state, graph = fe.tracker_state, fe.graph
+        results.append(_tensors((fe, prev)))
+    torch.cuda.synchronize()
+    exact = far = 0
+    for a, b in zip(*results):
+        if torch.equal(a, b):
+            exact += 1
+        elif a.is_floating_point() and max_abs(a, b) <= 1e-3:
+            far += 1
+        else:
+            raise AssertionError(f"camera split frontend: an output of {tuple(a.shape)} differs "
+                                 f"from the one-card call's by {max_abs(a, b)}")
+    print(f"[sharded cameras] multi_camera_frontend_step, {N_CAMERAS} cameras over "
+          f"{SHARD_ENTRIES} entries of cuda:0, 3 frames at the farm point: {exact} of "
+          f"{len(results[0])} outputs bit-identical to the one-card call, {far} within 1e-3")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip([dev] * 4)
+    print("[sharded dryrun] " + " | ".join(buf.getvalue().strip().splitlines()))
+    return row
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -3254,6 +3536,7 @@ def main() -> int:
     phase_mesher_node(canvas, dev)
     vio, mission = phase_state_estimator(dev, smi)
     deploy = phase_vio_deploy(dev, mission)
+    sharded = phase_sharded(canvas, rig, config, dev)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
@@ -3277,6 +3560,9 @@ def main() -> int:
     for k, row in fleet_lm.items():
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
         rows[k]["trilaterate"] = deploy["trilaterate"][k]
+    # pm_pass's, from the sharded step at the largest block count (phase 18).
+    launches["pm_pass"] = sharded.pop("launches")
+    rows["pm_pass"] = sharded
     kernels = [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=launches[k], **{"library_ms": None, **rows[k]})

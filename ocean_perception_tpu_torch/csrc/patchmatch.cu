@@ -5,7 +5,8 @@
 // pallas_patchmatch_fused (body _kernel) and its prebuilt-volume entry
 // pallas_patchmatch_fused_prebuilt, with its per-pass unit
 // ocean_perception_tpu/ops/pallas/propagate.py::pallas_propagate_pass (body
-// _prop_kernel). Semantics are those of stereo/patchmatch.py::_match_plain:
+// _prop_kernel), which pm_pass launches alone. Semantics are those of
+// stereo/patchmatch.py::_match_plain:
 //   per iteration: foreground noise and cost refresh, then the directional
 //   passes R+ C+ R- C-; after the last iteration MaskBackground.
 //
@@ -39,6 +40,15 @@
 // one-camera launch takes the kernel built without the camera (kBatch
 // false): the camera's decode cost the batched build 2.5% of the match's
 // device time at one camera, in turns on an H100 (PERF.md).
+//
+// pm_pass launches one of these passes alone, for one block of a frame whose
+// rows are split across devices (parallel/stereo_sharded.py): the block is
+// one y-strip of the frame, and between its passes the neighbouring blocks
+// exchange the rows its column scans reach, so the passes cannot share one
+// launch. It runs the same row_pass and col_pass as pm_match, with the
+// fronts, the volume and the lanes' validity placed in the frame by the row
+// offsets of Match (zero for a whole frame); the refresh is folded into R+
+// and the mask into the last C- as in pm_match.
 //
 // The passes follow the reference CUDA design (patchmatch_gpu.cu:116-230)
 // in what they compute: each (strip, lane) walks its chunk + 2*halo
@@ -154,6 +164,18 @@ struct Hwd {
   }
 };
 
+// (H, W, D) rows from frame row y0 on: at(y, ...) with y a row of the frame.
+// A block of a sharded frame (pm_pass) holds its own rows and those its
+// column scan reaches.
+template <typename T>
+struct HwdFrom {
+  const T* C;
+  int W, D, y0;
+  __device__ __forceinline__ T at(int y, int x, int d) const {
+    return C[((long long)(y - y0) * W + x) * D + d];
+  }
+};
+
 template <typename T>
 struct RowStrips {  // V_row (chunk, chunks, D, H), x = c*chunk + i
   static constexpr int kSpec = kSpecRowStrips;
@@ -193,6 +215,11 @@ struct Match {
   float* out;          // (B, H, W) masked disparities
   int B, H, W, D, pr, halo, chunks_x, chunk_x, chunks_y, chunk_y, iters;
   float scale0, improve;
+  // Where the fronts sit in the frame (all 0 and rows = H for a whole frame).
+  // Row passes: row 0 of the fronts is frame row row0 of a frame of rows
+  // rows, which decides each lane's validity. Column passes: row 0 of the
+  // input fronts is frame row front_row0, of the outputs frame row out_row0.
+  int row0, rows, front_row0, out_row0;
 };
 
 constexpr int kLanes = 16;     // rows of a row-pass work item, one walking thread each
@@ -221,7 +248,7 @@ __device__ __forceinline__ void row_pass(const Vol& vol, const Match<T>& a, cons
   const int lo = max(start, pr);
   const int hi = min((c + 1) * chunk + halo, W - pr - 1);
   const bool walks = l < nl;  // rows outside [pr, H-pr-1] walk too, failing every step
-  const bool row_ok = y >= pr && y <= H - pr - 1;
+  const bool row_ok = y + a.row0 >= pr && y + a.row0 <= a.rows - pr - 1;
   // Walk step s is in-strip index j(s), at column clamp(start + j(s)).
   auto j_of = [&](int s) { return forward ? s : w - 1 - s; };
   auto x_of = [&](int s) { return clampi(start + j_of(s), 0, W - 1); };
@@ -368,13 +395,13 @@ __device__ __forceinline__ void col_pass(const Vol& vol, const Match<T>& a, cons
   // The front starts at the predecessor of the strip's first position.
   const int first = clampi(start + (forward ? 0 : w - 1), 0, H - 1);
   const int pred = clampi(first + (forward ? -1 : 1), 0, H - 1);
-  float carry = ld_front(disp_in + (long long)pred * W + x);
+  float carry = ld_front(disp_in + (long long)(pred - a.front_row0) * W + x);
 
   for (int s = 0; s < w; ++s) {
     const int j = forward ? s : w - 1 - s;
     const int u = start + j;
     const int y = clampi(u, 0, H - 1);
-    const long long p = (long long)y * W + x;
+    const long long p = (long long)(y - a.front_row0) * W + x;
     const float cand_d = fminf(carry, (float)(x - pr));
     const T cand_c = vol.at(y, x, lookup_index(cand_d, D));
     const float cur_d = ld_front(disp_in + p);
@@ -383,13 +410,14 @@ __device__ __forceinline__ void col_pass(const Vol& vol, const Match<T>& a, cons
     carry = better ? cand_d : cur_d;
     if (j >= halo && j < halo + chunk) {
       const T cost = better ? cand_c : cur_c;
+      const long long q = (long long)(y - a.out_row0) * W + x;
       if (kMask) {
         const bool keep = to_f(cost) < __fmul_rn(a.improve, to_f(vol.at(y, x, 0)));
         const bool interior = y >= pr && y <= H - pr - 1 && col_ok;
-        out[p] = keep && interior ? carry : 0.f;
+        out[q] = keep && interior ? carry : 0.f;
       } else {
-        disp_out[p] = carry;
-        cost_out[p] = cost;
+        disp_out[q] = carry;
+        cost_out[q] = cost;
       }
     }
   }
@@ -446,6 +474,31 @@ pm_match_kernel(RowVol rvol, ColVol cvol, Match<T> a) {
         }
       }
     }
+  }
+}
+
+// One pass of one block of a sharded frame (pm_pass): the block owns frame
+// rows [a.row0, a.row0 + chunk) and is one y-strip of the frame. kAxis 1 is
+// a row pass over the block's rows in a.chunks_x x-strips, a work item a
+// block of threads, as in pm_match (kFold: the iteration's refresh, R+);
+// kAxis 0 a column pass of the block's strip (kFold: the mask, the last C-),
+// a thread a column. Its inputs and outputs are those of the pass in
+// pm_match, the fronts moved by the offsets of Match.
+template <typename T, int kAxis, bool kFold>
+__global__ void __launch_bounds__(kThreads)
+pm_pass_kernel(Hwd<T> rvol, HwdFrom<T> cvol, Match<T> a, const float* disp_in, const T* cost_in,
+               float* disp_out, T* cost_out, float scale, bool forward, int strip) {
+  if constexpr (kAxis == 1) {
+    __shared__ float td[kSegment][kLanes + 1];
+    __shared__ __align__(4) unsigned char tc_raw[kSegment * (kLanes + 1) * sizeof(T)];
+    const int row_blocks = (a.H + kLanes - 1) / kLanes;
+    const int y0 = blockIdx.x % row_blocks * kLanes, c = blockIdx.x / row_blocks;
+    row_pass<kFold>(rvol, a, disp_in, cost_in, scale, disp_out, cost_out, forward, y0, c, td,
+                    reinterpret_cast<T*>(tc_raw));
+  } else {
+    const int x = blockIdx.x * kColumns + threadIdx.x;
+    if (threadIdx.x >= kColumns || x >= a.W) return;
+    col_pass<kFold>(cvol, a, disp_in, cost_in, disp_out, cost_out, disp_out, forward, x, strip);
   }
 }
 
@@ -507,7 +560,44 @@ Match<T> match_args(const void* seed, const void* noise, void* disp, void* cost,
   a.iters = iters;
   a.scale0 = scale0;
   a.improve = improve;
+  a.row0 = 0;
+  a.rows = H;
+  a.front_row0 = 0;
+  a.out_row0 = 0;
   return a;
+}
+
+template <typename T>
+int block_pass(const void* C, const void* disp_in, const void* cost_in, const void* noise,
+               void* disp_out, void* cost_out, int H, int W, int D, int row0, int chunk,
+               int vol_row0, int front_row0, int chunks_x, int halo, int pr, int axis,
+               int forward, int fold, float scale, float improve, cudaStream_t s) {
+  Match<T> a = match_args<T>(nullptr, noise, nullptr, nullptr, nullptr, 1, H, W, D, chunks_x,
+                             H / chunk, halo, pr, 1, scale, improve);
+  a.chunk_y = chunk;
+  a.row0 = row0;
+  a.front_row0 = front_row0;
+  a.out_row0 = row0;
+  // A row pass walks the block's own rows: its fronts, noise and volume
+  // from there on, and lanes counted from the block's first row.
+  const Hwd<T> rvol{(const T*)C + (long long)(row0 - vol_row0) * W * D, W, D, 0};
+  const HwdFrom<T> cvol{(const T*)C, W, D, vol_row0};
+  const float* din = (const float*)disp_in;
+  const T* cin = (const T*)cost_in;
+  int blocks;
+  if (axis == 1) {
+    a.H = chunk;
+    din += (long long)(row0 - front_row0) * W;
+    cin += (long long)(row0 - front_row0) * W;
+    blocks = (chunk + kLanes - 1) / kLanes * chunks_x;
+  } else {
+    blocks = (W + kColumns - 1) / kColumns;
+  }
+  const auto kernel = axis == 1 ? (fold ? pm_pass_kernel<T, 1, true> : pm_pass_kernel<T, 1, false>)
+                                : (fold ? pm_pass_kernel<T, 0, true> : pm_pass_kernel<T, 0, false>);
+  kernel<<<blocks, kThreads, 0, s>>>(rvol, cvol, a, din, cin, (float*)disp_out, (T*)cost_out,
+                                     scale, forward != 0, row0 / chunk);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -562,4 +652,27 @@ extern "C" int opt_pm_match_strip(const void* V_row, const void* V_col, const vo
   return (bf16 ? match_strips<__nv_bfloat16> : match_strips<float>)(
       V_row, V_col, seed, noise, disp, cost, out, B, H, W, D, chunks_x, chunks_y, halo, pr, iters,
       scale0, improve, s);
+}
+
+// One directional pass of one block of a frame of H rows split into blocks
+// of chunk rows, the block that owns rows [row0, row0 + chunk) (row0 a
+// multiple of chunk). C holds the block's (H, W, D) volume rows from frame
+// row vol_row0 on, as many as the pass reads; disp_in and cost_in (float32
+// and C's dtype) the pass-start fronts from frame row front_row0 on. axis 1
+// is a row pass over the block's rows in chunks_x x-strips; fold adds the
+// iteration's refresh (noise, the block's (chunk, W) rows of the unit noise
+// image, times scale), and cost_in is not read. axis 0 is a column pass with
+// the block as the one y-strip, its positions and their validity counted in
+// frame rows; fold masks the result (improve) and writes only disp_out.
+// disp_out and cost_out are the block's (chunk, W) fronts after the pass.
+extern "C" int opt_pm_pass(const void* C, const void* disp_in, const void* cost_in,
+                           const void* noise, void* disp_out, void* cost_out, int H, int W, int D,
+                           int row0, int chunk, int vol_row0, int front_row0, int chunks_x,
+                           int halo, int pr, int axis, int forward, int fold, float scale,
+                           float improve, int bf16, void* stream) {
+  if ((long long)chunk * W == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (bf16 ? block_pass<__nv_bfloat16> : block_pass<float>)(
+      C, disp_in, cost_in, noise, disp_out, cost_out, H, W, D, row0, chunk, vol_row0, front_row0,
+      chunks_x, halo, pr, axis, forward, fold, scale, improve, s);
 }

@@ -23,28 +23,28 @@ from ..ops.lm import LMConfig, channel_sq, lm_solve, row_sum
 from .formation import beta_d_of_z, beta_guesses
 
 
-def _grid_samples(
-    range_img: torch.Tensor, illuminant: torch.Tensor, num_px: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Uniform-grid sample of (z, E, valid), static shape (..., num_px, ...),
-    skipping a 5-px border; the same pixels of every image."""
-    *batch, H, W = range_img.shape
-    dev = range_img.device
+def grid_positions(H: int, W: int, num_px: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(yy, xx): the pixels of the uniform-grid sample, at most num_px, in
+    row-major order, skipping a 5-px border."""
     px_per_row = max(1, int((4 * num_px) ** 0.5))
     stride_y = max(1, (H - 10) // px_per_row)
     stride_x = max(1, (W - 10) // px_per_row)
-    ys = torch.arange(5, H - 5, stride_y, device=dev)
-    xs = torch.arange(5, W - 5, stride_x, device=dev)
+    ys = torch.arange(5, H - 5, stride_y, device=device)
+    xs = torch.arange(5, W - 5, stride_x, device=device)
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
     yy = yy.reshape(-1)
     xx = xx.reshape(-1)
     n = yy.shape[0]
     if n >= num_px:
-        sel = torch.arange(num_px, device=dev) * (n // num_px)
+        sel = torch.arange(num_px, device=device) * (n // num_px)
         yy, xx = yy[sel], xx[sel]
-        n = num_px
-    z = range_img[..., yy, xx]
-    E = illuminant[..., yy, xx, :]
+    return yy, xx
+
+
+def pad_samples(z: torch.Tensor, E: torch.Tensor, num_px: int):
+    """(z, E, valid) of the grid's samples, padded with invalid ones to
+    num_px: static shapes (..., num_px), (..., num_px, 3)."""
+    *batch, n = z.shape
     valid = z > 1e-3
     if n < num_px:
         pad = num_px - n
@@ -52,6 +52,15 @@ def _grid_samples(
         E = torch.cat([E, E.new_zeros((*batch, pad, 3))], dim=-2)
         valid = torch.cat([valid, valid.new_zeros((*batch, pad))], dim=-1)
     return z, E, valid
+
+
+def _grid_samples(
+    range_img: torch.Tensor, illuminant: torch.Tensor, num_px: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Uniform-grid sample of (z, E, valid), static shape (..., num_px, ...),
+    skipping a 5-px border; the same pixels of every image."""
+    yy, xx = grid_positions(*range_img.shape[-2:], num_px, range_img.device)
+    return pad_samples(range_img[..., yy, xx], illuminant[..., yy, xx, :], num_px)
 
 
 class BetaFit(NamedTuple):
@@ -82,13 +91,19 @@ def estimate_beta(
     """LM fit of beta_D from X0, which is (12,), a batch of starts (G, 12),
     or starts for each image (..., G, 12); the fit and its error have X0's
     shape without the last axis."""
+    return fit_beta(*_grid_samples(range_img, illuminant, num_px), iters, X0)
+
+
+def fit_beta(z: torch.Tensor, E: torch.Tensor, valid: torch.Tensor, iters: int = 20,
+             X0: torch.Tensor | None = None) -> BetaFit:
+    """The fit of :func:`estimate_beta` on its samples: z (..., N), E (...,
+    N, 3) and valid (..., N)."""
     if X0 is None:
-        X0 = beta_guesses(range_img.device)[0]
+        X0 = beta_guesses(z.device)[0]
     single = X0.ndim == 1
     X0 = _clamp_beta(X0.float())
     if single:
         X0 = X0[None]
-    z, E, valid = _grid_samples(range_img, illuminant, num_px)
     # The samples broadcast over the starts: (..., 1, N) against (..., G, N).
     w_valid = valid.float()[..., None, :]
     n_valid = w_valid.sum(dim=-1)
@@ -148,18 +163,25 @@ def estimate_beta_multi_start(
 ) -> BetaFit:
     """Fit from every guess (one batched LM run) and keep, for each image,
     the fit of lowest error."""
-    fits = estimate_beta(range_img, illuminant, num_px=num_px, iters=iters, X0=guesses)
+    return best_fit(estimate_beta(range_img, illuminant, num_px=num_px, iters=iters, X0=guesses))
+
+
+def best_fit(fits: BetaFit) -> BetaFit:
+    """Each image's fit of lowest error among its starts."""
     # An index tensor: a 0-d one would be read back to the host.
     best = torch.argmin(fits.error, dim=-1, keepdim=True)
     return BetaFit(torch.take_along_dim(fits.X, best[..., None], dim=-2)[..., 0, :],
                    torch.take_along_dim(fits.error, best, dim=-1)[..., 0])
 
 
-def correct_attenuation(image: torch.Tensor, range_img: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """J = D * exp(beta_D(z) * z); zero ranges -> the image's largest range.
-    X is (..., 12), one fit an image. The exponent is clamped at 60 so a
+def correct_attenuation(image: torch.Tensor, range_img: torch.Tensor, X: torch.Tensor,
+                        zmax: torch.Tensor | None = None) -> torch.Tensor:
+    """J = D * exp(beta_D(z) * z); zero ranges -> the image's largest range
+    (``zmax``, (..., 1, 1), when the image is a block of a larger one). X
+    is (..., 12), one fit an image. The exponent is clamped at 60 so a
     diverged fit stays finite."""
-    zmax = range_img.amax(dim=(-2, -1), keepdim=True)
+    if zmax is None:
+        zmax = range_img.amax(dim=(-2, -1), keepdim=True)
     z = torch.where(range_img > 0.0, range_img, zmax)
     X = X[..., None, None, :]  # over the image's pixels
     E = torch.exp(torch.clamp_max(beta_d_of_z(X, z) * z[..., None], 60.0))

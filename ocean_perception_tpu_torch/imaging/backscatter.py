@@ -43,11 +43,19 @@ def find_dark_mask(
     return valid & (intensity < thresh[..., None, None])
 
 
-def _hash_rank(n: int, device=None) -> torch.Tensor:
-    """Knuth-hash ranking of flat pixel indices with uint32 wraparound,
-    held in int64: (idx * 2654435761 mod 2^32) ^ (idx >> 16)."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _hash_rank(n: int, device=None, start: int = 0) -> torch.Tensor:
+    """Knuth-hash ranking of flat pixel indices start .. start+n-1 with
+    uint32 wraparound, held in int64: (idx * 2654435761 mod 2^32) ^ (idx >> 16)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return ((idx * 2654435761) & _M32) ^ (idx >> 16)
+
+
+def _buckets(num_px: int) -> Tuple[int, int]:
+    """(s1, s2), s1*s2 = num_px: the bucket lattice of the sampling."""
+    s1 = int(num_px**0.5)
+    while num_px % s1:
+        s1 -= 1
+    return s1, num_px // s1
 
 
 def sample_masked_pixels(
@@ -63,10 +71,7 @@ def sample_masked_pixels(
     each bucket gives its masked pixel of highest hash rank (ties to the
     first index). The rank hashes the pixel's index within its image."""
     *batch, H, W = range_img.shape
-    s1 = int(num_px**0.5)
-    while num_px % s1:
-        s1 -= 1
-    s2 = num_px // s1
+    s1, s2 = _buckets(num_px)
     hb, wb = -(-H // s1), -(-W // s2)
     rank = _hash_rank(H * W, range_img.device).reshape(H, W)
     score = range_img.new_full((*batch, hb * s1, wb * s2), -1, dtype=torch.int64)
@@ -101,6 +106,42 @@ def _residual_terms(X: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor):
     return rgb - model, atten_back, exp_beta_D
 
 
+def sample_masked_pixels_blocks(images, ranges, masks, num_px: int, lead: torch.device):
+    """:func:`sample_masked_pixels` of one (H, W) image split by rows into
+    blocks on their devices ((h, W, 3) images, (h, W) ranges and masks, in
+    row order): each block's candidate for each bucket, its masked pixel of
+    highest hash rank and lowest index, goes to ``lead``, where the best of
+    the blocks' candidates is kept. The same pixels as the whole image's."""
+    W = ranges[0].shape[-1]
+    H = sum(r.shape[-2] for r in ranges)
+    s1, s2 = _buckets(num_px)
+    if H < s1 or W < s2:
+        raise ValueError(f"blocks of a {H}x{W} image leave sampling buckets of {s1}x{s2} empty")
+    keys, rgbs, zs = [], [], []
+    row0 = 0
+    for image, rng, mask in zip(images, ranges, masks):
+        h, dev = rng.shape[-2], rng.device
+        idx = torch.arange(row0 * W, (row0 + h) * W, dtype=torch.int64, device=dev)
+        score = torch.where(mask.reshape(-1), _hash_rank(h * W, dev, row0 * W) >> 1, -1)
+        # Highest score first, then lowest index: (score, -idx) as one int64.
+        key = score * 2**32 + (_M32 - idx)
+        rows = torch.arange(row0, row0 + h, device=dev)[:, None] % s1
+        cols = torch.arange(W, device=dev)[None, :] % s2
+        bucket = (rows * s2 + cols).reshape(-1)
+        best = torch.full((num_px,), torch.iinfo(torch.int64).min, dtype=torch.int64, device=dev)
+        best = best.scatter_reduce(0, bucket, key, "amax")
+        local = (_M32 - (best & _M32) - row0 * W).clamp(0, h * W - 1)
+        keys.append(best.to(lead))
+        rgbs.append(image.reshape(h * W, 3)[local].to(lead))
+        zs.append(rng.reshape(h * W)[local].to(lead))
+        row0 += h
+    keys = torch.stack(keys)
+    j = torch.argmax(keys, dim=0, keepdim=True)
+    rgb = torch.take_along_dim(torch.stack(rgbs), j[..., None], dim=0)[0]
+    z = torch.take_along_dim(torch.stack(zs), j, dim=0)[0]
+    return rgb, z, torch.take_along_dim(keys, j, dim=0)[0] >= 0
+
+
 def estimate_backscatter(
     image: torch.Tensor,
     range_img: torch.Tensor,
@@ -110,8 +151,14 @@ def estimate_backscatter(
 ) -> BackscatterFit:
     """Fit the 12-parameter backscatter model to sampled dark pixels, from
     the Sea-thru D5 defaults."""
-    X0 = backscatter_start(image.device).expand(*range_img.shape[:-2], 12)
-    rgb, z, valid = sample_masked_pixels(image, range_img, dark_mask, num_px)
+    return fit_backscatter(*sample_masked_pixels(image, range_img, dark_mask, num_px), iters)
+
+
+def fit_backscatter(rgb: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
+                    iters: int = 10) -> BackscatterFit:
+    """The fit of :func:`estimate_backscatter` on its samples: rgb (..., N,
+    3), z (..., N) and valid (..., N)."""
+    X0 = backscatter_start(rgb.device).expand(*z.shape[:-1], 12)
     w_valid = valid.float()
     n_valid = w_valid.sum(dim=-1)
     zz = z[..., None]

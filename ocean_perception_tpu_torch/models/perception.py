@@ -19,7 +19,7 @@ call.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -44,6 +44,9 @@ class PerceptionConfig:
     run_enhance: bool = True
     # PatchMatch strip count (the reference's own decomposition).
     chunks: int = 16
+    # Strips of PatchMatch's column passes; None = ``chunks``. The sharded
+    # step (parallel/sharded_pipeline.py) equals this step with chunks_y = N.
+    chunks_y: Optional[int] = None
     # PatchMatch over the two strip layouts built straight from the images
     # (kernel build_volumes and the *_strip match kernels); bit-identical.
     use_strip_volumes: bool = False
@@ -88,8 +91,9 @@ def perception_step(
 
     d_small = config.max_disp // scale if scale > 1 else config.max_disp
     if config.engine == "patchmatch":
-        pm = PatchMatchParams(max_disp=d_small, chunks=config.chunks, right_wta=True,
-                              volume_bf16=True, use_strip_volumes=config.use_strip_volumes)
+        pm = PatchMatchParams(max_disp=d_small, chunks=config.chunks, chunks_y=config.chunks_y,
+                              right_wta=True, volume_bf16=True,
+                              use_strip_volumes=config.use_strip_volumes)
         result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.PATCHMATCH,
                                     patchmatch_params=pm)
     elif config.engine == "sgm":

@@ -23,6 +23,8 @@ launches the double build of the same code (the float64 fits of
 ``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
 volume in the two strip layouts; each has its own entry in
 :data:`LAUNCHES`, so a run shows which layout the match went through.
+``pm_pass`` launches one of the match's passes alone, for one block of a
+frame whose rows are split across devices (``parallel/stereo_sharded.py``).
 
 The wrappers take a batch: any leading axes in front of an image's (H, W)
 (cameras) go into the one launch, the camera an index of the grid; for
@@ -59,7 +61,7 @@ NVCC_FLAGS = (
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"cost_volume": 0, "pm_match": 0, "build_volumes": 0, "pm_match_strip": 0,
-            "lk_track": 0, "lm_solve_small": 0, "lm_row_sum": 0}
+            "pm_pass": 0, "lk_track": 0, "lm_solve_small": 0, "lm_row_sum": 0}
 
 
 def reset_launches() -> None:
@@ -134,6 +136,7 @@ _SIGNATURES = {
     "opt_pm_match": [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P],
     "opt_build_volumes": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
     "opt_pm_match_strip": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
+    "opt_pm_pass": [_P] * 6 + [_I] * 13 + [_F, _F, _I, _P],
     "opt_lm_solve_small": [_P] * 4 + [_I] * 4 + [_P],
     "opt_lm_row_sum": [_P, _P, _I, _I, _P],
 }
@@ -270,6 +273,62 @@ def pm_match(C, seed, noise, iters: int, noise_scale0: float, chunks_x: int, chu
     _check(err, "pm_match")
     LAUNCHES["pm_match"] += 1
     return out
+
+
+def pm_pass(C, disp, cost, noise, H: int, row0: int, chunk: int, vol_row0: int,
+            front_row0: int, chunks_x: int, halo: int, patch_radius: int, axis: int,
+            forward: bool, fold: bool, scale: float, improve_factor: float):
+    """One directional pass of the match for one block of a frame of H rows
+    split into blocks of chunk rows, the block of rows [row0, row0 + chunk),
+    one launch; see stereo/patchmatch.py::_block_pass_plain. C is (n, W, D),
+    the frame's volume rows from vol_row0 on; disp and cost (m, W), the
+    pass-start fronts from front_row0 on. axis 1 is a row pass over the
+    block's rows in chunks_x x-strips, with ``fold`` the refresh by the
+    (chunk, W) noise rows times scale (cost is then not read and may be
+    None); axis 0 the column pass of the block's strip, with ``fold`` the
+    mask. Returns the block's (chunk, W) disparities and costs, the costs
+    None after the mask."""
+    _require(C, "C", (torch.float32, torch.bfloat16))
+    if C.ndim != 3:
+        raise ValueError(f"C must be (rows, W, D), got {tuple(C.shape)}")
+    _check_size(C.numel())
+    n, W, D = C.shape
+    refresh, mask = fold and axis == 1, fold and axis == 0
+    _require(disp, "disp", (torch.float32,))
+    m = disp.shape[0]
+    if disp.shape != (m, W):
+        raise ValueError(f"disp must be (rows, {W}), got {tuple(disp.shape)}")
+    if not refresh:
+        _require(cost, "cost", (C.dtype,), (m, W))
+    if refresh:
+        _require(noise, "noise", (torch.float32,), (chunk, W))
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 (column pass) or 1 (row pass), got {axis}")
+    if chunk < 1 or H % chunk or row0 % chunk or not 0 <= row0 < H or chunks_x < 1 \
+            or W % chunks_x:
+        raise ValueError(f"block rows [{row0}, {row0 + chunk}) with {chunks_x} x-strips do not "
+                         f"tile a {H}x{W} frame")
+    if axis == 1:  # the block's own rows
+        need_v, need_f = (row0, row0 + chunk), (row0, row0 + chunk)
+    else:  # the strip's positions, clipped, and their predecessors
+        lo, hi = max(row0 - halo, 0), min(row0 + chunk + halo, H)
+        need_v, need_f = (lo, hi), (max(lo - 1, 0), min(hi + 1, H))
+    for name, first, rows, (a, b) in (("C", vol_row0, n, need_v), ("disp", front_row0, m, need_f)):
+        if first > a or first + rows < b:
+            raise ValueError(f"{name} holds frame rows [{first}, {first + rows}); the pass reads "
+                             f"[{a}, {b})")
+    out_d = torch.empty((chunk, W), dtype=torch.float32, device=C.device)
+    out_c = None if mask else torch.empty((chunk, W), dtype=C.dtype, device=C.device)
+    with torch.cuda.device(C.device):
+        err = library().opt_pm_pass(
+            C.data_ptr(), disp.data_ptr(), 0 if refresh else cost.data_ptr(),
+            noise.data_ptr() if refresh else 0, out_d.data_ptr(),
+            0 if mask else out_c.data_ptr(), H, W, D, row0, chunk, vol_row0, front_row0,
+            chunks_x, halo, patch_radius, axis, int(forward), int(fold), scale, improve_factor,
+            int(C.dtype == torch.bfloat16), _stream(C))
+    _check(err, "pm_pass")
+    LAUNCHES["pm_pass"] += 1
+    return out_d, out_c
 
 
 def build_volumes(iml, imr, gl, gr, max_disp: int, alpha: float, beta: float, chunks_x: int,

@@ -27,13 +27,23 @@ def fast_guided_filter(
         return fast_guided_filter(guide.unsqueeze(-3), target.movedim(-1, -3), radius, eps,
                                   subsample).movedim(-3, -1)
     H, W = guide.shape[-2], guide.shape[-1]
-    s = max(1, int(subsample))
-    h, w = max(2, H // s), max(2, W // s)
-    r_small = max(1, int(round(radius / s)))
+    h, w, r_small = guided_size(H, W, radius, subsample)
 
     I = resize(guide, (h, w), method="nearest").float()
     p = resize(target, (h, w), method="nearest").float()
+    mean_a, mean_b = guided_coefficients(I, p, r_small, eps)
+    return resize(mean_a, (H, W), method="linear") * guide + resize(mean_b, (H, W), method="linear")
 
+
+def guided_size(H: int, W: int, radius: int, subsample: int):
+    """(h, w, r_small): the low resolution of the fit and its box radius."""
+    s = max(1, int(subsample))
+    return max(2, H // s), max(2, W // s), max(1, int(round(radius / s)))
+
+
+def guided_coefficients(I: torch.Tensor, p: torch.Tensor, r_small: int, eps: float):
+    """The box-filtered linear-model coefficients (a, b) of the guided
+    filter at low resolution, from the subsampled guide I and target p."""
     mean_I = box_filter(I, r_small)
     mean_p = box_filter(p, r_small)
     corr_I = box_filter(I * I, r_small)
@@ -44,7 +54,4 @@ def fast_guided_filter(
 
     a = cov_Ip / (var_I + eps)
     b = mean_p - a * mean_I
-
-    mean_a = resize(box_filter(a, r_small), (H, W), method="linear")
-    mean_b = resize(box_filter(b, r_small), (H, W), method="linear")
-    return mean_a * guide + mean_b
+    return box_filter(a, r_small), box_filter(b, r_small)

@@ -265,25 +265,34 @@ def _linear_taps_on(m: int, n: int, device: torch.device) -> Tuple[torch.Tensor,
             torch.as_tensor(np.ascontiguousarray(wt.T), device=device))
 
 
+def nearest_source(m: int, n: int) -> np.ndarray:
+    """Source index of each of n outputs resampling m inputs, nearest:
+    float32 offsets, exactly as ``jax.image.resize`` computes them."""
+    off = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m) / np.float32(n)
+    return np.floor(off.astype(np.float32)).astype(np.int64)
+
+
 @functools.lru_cache(maxsize=64)
 def _nearest_index(m: int, n: int, device: torch.device) -> torch.Tensor:
-    """Source index of each of n outputs resampling m inputs, nearest, on
-    ``device``: float32 offsets, exactly as ``jax.image.resize`` computes them."""
-    off = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m) / np.float32(n)
-    return torch.as_tensor(np.floor(off.astype(np.float32)).astype(np.int64), device=device)
+    """:func:`nearest_source` on ``device``, copied there once."""
+    return torch.as_tensor(nearest_source(m, n), device=device)
 
 
-def _resize_axis(image: torch.Tensor, n: int, axis: int, method: str) -> torch.Tensor:
+def _resize_axis(image: torch.Tensor, n: int, axis: int, method: str,
+                 rows: Tuple[int, int] | None = None) -> torch.Tensor:
+    """Resize ``axis`` to n; ``rows`` = (first, count): only those outputs."""
     m = image.shape[axis]
+    first, count = (0, n) if rows is None else rows
     if m == n:
-        return image
+        return image if rows is None else image.narrow(axis, first, count)
     if method == "nearest":
-        return image.index_select(axis, _nearest_index(m, n, image.device))
+        return image.index_select(axis, _nearest_index(m, n, image.device)[first:first + count])
     if method != "linear":
         raise NotImplementedError(f"resize method {method!r} is not ported")
     idx, wt = _linear_taps_on(m, n, image.device)
+    idx, wt = idx[:, first:first + count], wt[:, first:first + count]
     shape = [1] * image.ndim
-    shape[axis] = n
+    shape[axis] = count
     out = None
     for t in range(idx.shape[0]):
         term = image.index_select(axis, idx[t]) * wt[t].reshape(shape)
@@ -291,11 +300,13 @@ def _resize_axis(image: torch.Tensor, n: int, axis: int, method: str) -> torch.T
     return out
 
 
-def resize(image: torch.Tensor, shape: Sequence[int], method: str = "linear") -> torch.Tensor:
+def resize(image: torch.Tensor, shape: Sequence[int], method: str = "linear",
+           rows: Tuple[int, int] | None = None) -> torch.Tensor:
     """Resize the H and W axes to ``shape`` with half-pixel-centre
     sampling (``jax.image.resize`` semantics: ``nearest`` is torch's
-    ``nearest-exact``; ``linear`` antialiases when downsampling)."""
-    out = _resize_axis(image, shape[0], -2, method)
+    ``nearest-exact``; ``linear`` antialiases when downsampling). ``rows``
+    = (first, count): only those output rows, as the whole resize gives them."""
+    out = _resize_axis(image, shape[0], -2, method, rows)
     return _resize_axis(out, shape[1], -1, method)
 
 

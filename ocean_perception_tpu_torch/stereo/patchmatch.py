@@ -29,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..ops import cuda
@@ -90,17 +89,20 @@ def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def unit_noise(shape, seed: int, device=None) -> torch.Tensor:
+def unit_noise(shape, seed: int, device=None, row0: int = 0,
+               n_rows: Optional[int] = None) -> torch.Tensor:
     """Fixed uniform [-1, 1) noise image, bit for bit
     ``jax.random.uniform(jax.random.PRNGKey(seed), shape, float32, -1, 1)``
     under JAX's partitionable threefry (the reference allocates one noise
-    image with cv::RNG(123) and reuses it every frame)."""
-    n = int(np.prod(shape))
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    image with cv::RNG(123) and reuses it every frame). With ``n_rows``, only
+    rows [row0, row0 + n_rows) of the (H, W) image."""
+    H, W = shape
+    n_rows = H - row0 if n_rows is None else n_rows
+    idx = torch.arange(row0 * W, (row0 + n_rows) * W, dtype=torch.int64, device=device)
     b0, b1 = _threefry2x32((seed >> 32) & _M32, seed & _M32, idx >> 32, idx & _M32)
     bits = ((b0 ^ b1) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(floats * 2.0 - 1.0, -1.0).reshape(tuple(shape))
+    return torch.clamp_min(floats * 2.0 - 1.0, -1.0).reshape(n_rows, W)
 
 
 def add_foreground_noise(disp: torch.Tensor, noise: torch.Tensor, scale: float) -> torch.Tensor:
@@ -155,8 +157,25 @@ def _strips(p: PatchMatchParams, axis: int) -> int:
     return p.chunks_y
 
 
-def _propagate_plain(C, disp, cost, direction: int, axis: int, p: PatchMatchParams):
-    """One directional pass over all strips (a pass of ``pm_match``).
+class BlockRows(NamedTuple):
+    """Where a block of a frame split by rows sits: it owns frame rows
+    [row0, row0 + chunk) of n_rows, and is strip row0 // chunk of the
+    column passes' n_rows // chunk strips. Row 0 of the volume it is given
+    is frame row vol_row0, row 0 of its pass-start fronts frame row
+    front_row0 (parallel/stereo_sharded.py)."""
+    row0: int
+    chunk: int
+    n_rows: int
+    vol_row0: int
+    front_row0: int
+
+
+def _propagate_plain(C, disp, cost, direction: int, axis: int, p: PatchMatchParams,
+                     block: Optional[BlockRows] = None):
+    """One directional pass over all strips (a pass of ``pm_match``), or,
+    with ``block``, over one block's rows (a launch of ``pm_pass``; a
+    column pass is then the block's strip alone, its positions, their
+    validity and each row lane's validity counted in frame rows).
 
     Scan position by position (all pairs, strips and lanes at once). Every
     step reads the pass-start disparity and cost of its position and only
@@ -164,38 +183,52 @@ def _propagate_plain(C, disp, cost, direction: int, axis: int, p: PatchMatchPara
     semantics)."""
     batch = disp.shape[:-2]
     C = C.reshape(-1, *C.shape[-3:])  # one batch axis, a view
-    B, H, W, D = C.shape
-    disp, cost = disp.reshape(B, H, W), cost.reshape(B, H, W)
+    B, W, D = C.shape[0], C.shape[-2], C.shape[-1]
+    disp, cost = disp.reshape(B, -1, W), cost.reshape(B, -1, W)
+    rows = block or BlockRows(0, disp.shape[1], disp.shape[1], 0, 0)
     pr, halo = p.patch_radius, p.halo
-    if axis == 1:  # rows pass: positions along x, lanes are rows
-        dim, N = W, H
+    if axis == 1:  # rows pass: positions along x, lanes are the block's rows
+        C = C[:, rows.row0 - rows.vol_row0:][:, :rows.chunk]
+        disp = disp[:, rows.row0 - rows.front_row0:][:, :rows.chunk]
+        cost = cost[:, rows.row0 - rows.front_row0:][:, :rows.chunk]
+        dim, N, lane0, n_lanes = W, rows.chunk, rows.row0, rows.n_rows
         vals_d, vals_c, vol = disp.transpose(1, 2), cost.transpose(1, 2), C.transpose(1, 2)
+        pos, valid, chunk, w = _chunk_columns(W, _strips(p, 1), halo, pr, C.device)
+        f0 = v0 = o0 = 0
+        n_out = W
     else:
-        dim, N = H, W
+        dim, N, lane0, n_lanes = rows.n_rows, W, 0, W
         vals_d, vals_c, vol = disp, cost, C
-    pos, valid, chunk, w = _chunk_columns(dim, _strips(p, axis), halo, pr, C.device)
+        strips = _strips(p, 0) if block is None else rows.n_rows // rows.chunk
+        pos, valid, chunk, w = _chunk_columns(dim, strips, halo, pr, C.device)
+        if block is not None:
+            c = rows.row0 // rows.chunk
+            pos, valid = pos[c:c + 1], valid[c:c + 1]
+        f0, v0, o0 = rows.front_row0, rows.vol_row0, rows.row0
+        n_out = rows.chunk
     cams = torch.arange(B, device=C.device)[:, None, None]
     lanes = torch.arange(N, device=C.device)
-    lane_ok = (lanes >= pr) & (lanes <= N - pr - 1)
+    lane_ok = (lanes + lane0 >= pr) & (lanes + lane0 <= n_lanes - pr - 1)
     forward = direction > 0
     first = pos[:, 0 if forward else -1]
-    carry = vals_d[:, (first - direction).clamp(0, dim - 1)]  # (B, strips, N)
-    out_d = torch.empty_like(vals_d)
-    out_c = torch.empty_like(vals_c)
+    carry = vals_d[:, (first - direction).clamp(0, dim - 1) - f0]  # (B, strips, N)
+    out_d = vals_d.new_empty((B, n_out, N))
+    out_c = vals_c.new_empty((B, n_out, N))
     for j in range(w) if forward else range(w - 1, -1, -1):
         pj = pos[:, j]
-        cur_d, cur_c = vals_d[:, pj], vals_c[:, pj]
+        cur_d, cur_c = vals_d[:, pj - f0], vals_c[:, pj - f0]
         x = (pj[:, None] if axis == 1 else lanes).to(disp.dtype)
         cand_d = torch.minimum(carry, x - pr)
-        cand_c = vol[cams, pj[:, None], lanes, _lookup_index(cand_d, D)]
+        cand_c = vol[cams, (pj - v0)[:, None], lanes, _lookup_index(cand_d, D)]
         better = (cand_c.float() < cur_c.float()) & valid[:, j, None] & lane_ok
         carry = torch.where(better, cand_d, cur_d)
         if halo <= j < halo + chunk:
-            out_d[:, pj] = carry
-            out_c[:, pj] = torch.where(better, cand_c, cur_c)
+            out_d[:, pj - o0] = carry
+            out_c[:, pj - o0] = torch.where(better, cand_c, cur_c)
     if axis == 1:
         out_d, out_c = out_d.transpose(1, 2), out_c.transpose(1, 2)
-    return out_d.reshape(*batch, H, W).contiguous(), out_c.reshape(*batch, H, W).contiguous()
+    return (out_d.reshape(*batch, rows.chunk, W).contiguous(),
+            out_c.reshape(*batch, rows.chunk, W).contiguous())
 
 
 def _propagate_strip_plain(V, disp, cost, direction: int, axis: int, p: PatchMatchParams):
@@ -206,17 +239,19 @@ def _propagate_strip_plain(V, disp, cost, direction: int, axis: int, p: PatchMat
 
 
 def _mask_with_cost(C: torch.Tensor, disp: torch.Tensor, cost_d: torch.Tensor,
-                    p: PatchMatchParams) -> torch.Tensor:
+                    p: PatchMatchParams, row0: int = 0,
+                    n_rows: Optional[int] = None) -> torch.Tensor:
     """MaskBackground given cost_d, the cost of each pixel's disparity:
     zero the disparity unless it improves cost by improve_factor vs d=0, and
     on the 1-px frame. The threshold is a float32 product, as in the
-    reference."""
+    reference. Rows of a block are frame rows row0 on, of n_rows."""
     H, W = disp.shape[-2:]
+    n_rows = H if n_rows is None else n_rows
     pr = p.patch_radius
     keep = cost_d.float() < p.improve_factor * C[..., 0].float()
-    yy = torch.arange(H, device=disp.device)[:, None]
+    yy = torch.arange(row0, row0 + H, device=disp.device)[:, None]
     xx = torch.arange(W, device=disp.device)[None, :]
-    interior = (yy >= pr) & (yy <= H - pr - 1) & (xx >= pr) & (xx <= W - pr - 1)
+    interior = (yy >= pr) & (yy <= n_rows - pr - 1) & (xx >= pr) & (xx <= W - pr - 1)
     return torch.where(keep & interior, disp, 0.0)
 
 
@@ -258,14 +293,22 @@ def right_wta_from_left(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
     return torch.where(best < _improve_threshold(C, p), bestd, 0.0)
 
 
+def confident_wta(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
+    """The WTA disparity where its cost beats improve_factor * cost(0), else 0."""
+    wta = torch.argmin(C, dim=-1).float()
+    best = C.amin(dim=-1)
+    return torch.where(best < _improve_threshold(C, p), wta, 0.0)
+
+
+def seed_reach(p: PatchMatchParams) -> int:
+    """Rows (and columns) the seed's dilation reaches: 2^f + 1."""
+    return 2 ** p.init_dilate_factor + 1
+
+
 def sparse_wta_seed(C: torch.Tensor, p: PatchMatchParams) -> torch.Tensor:
     """Confident WTA pixels, max-dilated (element 2*(2^f + 1) + 1), replacing
     the reference's GFTT + stripe-template sparse init (cu:414-442)."""
-    wta = torch.argmin(C, dim=-1).float()
-    best = C.amin(dim=-1)
-    seeds = torch.where(best < _improve_threshold(C, p), wta, 0.0)
-    dilate_size = 2 ** p.init_dilate_factor + 1
-    return dilate(seeds, 2 * dilate_size + 1)
+    return dilate(confident_wta(C, p), 2 * seed_reach(p) + 1)
 
 
 class PatchMatchResult(NamedTuple):
@@ -298,6 +341,39 @@ def _match_plain(C_row, C_col, seed, noise, p: PatchMatchParams) -> torch.Tensor
     """Plain twin of ``pm_match``: :func:`_match_passes`, then MaskBackground
     on the cost the passes carry."""
     return _mask_with_cost(C_col, *_match_passes(C_row, C_col, seed, noise, p), p)
+
+
+def _block_pass_plain(C, disp, cost, noise, direction: int, axis: int, fold: bool,
+                      block: BlockRows, p: PatchMatchParams, scale: float = 0.0):
+    """Plain twin of ``pm_pass``: one pass of one block, built from the
+    whole frame's pieces. A row pass with ``fold`` refreshes first (noise,
+    the block's rows of the unit noise image, times scale); a column pass
+    with ``fold`` masks its result and returns (masked disparity, None)."""
+    own = slice(block.row0 - block.vol_row0, block.row0 - block.vol_row0 + block.chunk)
+    if axis == 1 and fold:
+        at = block.row0 - block.front_row0
+        disp, cost = _refresh_plain(C[..., own, :, :], disp[..., at:at + block.chunk, :], noise,
+                                    scale, p.patch_radius)
+        block = block._replace(front_row0=block.row0)
+    disp, cost = _propagate_plain(C, disp, cost, direction, axis, p, block)
+    if axis == 0 and fold:
+        return _mask_with_cost(C[..., own, :, :], disp, cost, p, block.row0, block.n_rows), None
+    return disp, cost
+
+
+def block_pass(C, disp, cost, noise, direction: int, axis: int, fold: bool, block: BlockRows,
+               p: PatchMatchParams, scale: float = 0.0):
+    """One directional pass of one block of a frame split by rows (kernel
+    ``pm_pass`` on CUDA tensors, :func:`_block_pass_plain` on CPU ones).
+    C holds the block's volume rows from frame row ``block.vol_row0``, disp
+    and cost the pass-start fronts from ``block.front_row0``; returns the
+    block's (chunk, W) fronts after the pass."""
+    if C.is_cuda:
+        H, W = block.n_rows, C.shape[-2]
+        return cuda.pm_pass(C, disp, cost, noise, H, block.row0, block.chunk, block.vol_row0,
+                            block.front_row0, _effective_chunks(W, p.chunks), p.halo,
+                            p.patch_radius, axis, direction > 0, fold, scale, p.improve_factor)
+    return _block_pass_plain(C, disp, cost, noise, direction, axis, fold, block, p, scale)
 
 
 def _match_one_side(C, seed, noise, p: PatchMatchParams) -> torch.Tensor:

@@ -48,6 +48,18 @@ from ocean_perception_tpu_torch.parallel import sharded_pipeline as tsp
 from ocean_perception_tpu_torch.tracking import lk as tlk
 from ocean_perception_tpu_torch.tracking.stereo_tracker import StereoTrackerState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 H, W, K, N, B = 64, 96, 32, 4, 2
 SCENES = ((0, 2), (7, 1))  # (canvas seed, px a frame)
 
@@ -81,7 +93,7 @@ def _configs():
     cam = jcam.PinholeCamera.create(80.0, 80.0, W / 2, H / 2, H, W)
     rig = jcam.StereoCamera.create(cam, cam, baseline=0.12)
     cfg = jmodel.PerceptionConfig(engine="patchmatch", max_disp=32, internal_scale=1,
-                                  run_enhance=False, chunks=4)
+                                  run_enhance=False, chunks=4, scan_unroll=1)
     mp = jom.ObjectMesherDeviceParams(
         tracker=StereoTrackerParams(
             capacity=K, trigger_keyframe_k=3,

@@ -39,6 +39,18 @@ from ocean_perception_tpu_torch.models import perception as tmodel
 from ocean_perception_tpu_torch.ops import cuda
 from ocean_perception_tpu_torch.ops.image import to_grayscale
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 H, W, K, N = 64, 96, 32, 4
 
 
@@ -61,7 +73,7 @@ def runs():
     cam = jcam.PinholeCamera.create(80.0, 80.0, W / 2, H / 2, H, W)
     rig = jcam.StereoCamera.create(cam, cam, baseline=0.12)
     cfg = jmodel.PerceptionConfig(engine="patchmatch", max_disp=32, internal_scale=1,
-                                  run_enhance=False, chunks=4)
+                                  run_enhance=False, chunks=4, scan_unroll=1)
     mp = jom.ObjectMesherDeviceParams(
         tracker=StereoTrackerParams(
             capacity=K, trigger_keyframe_k=3,

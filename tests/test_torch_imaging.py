@@ -37,6 +37,18 @@ from ocean_perception_tpu_torch.imaging import enhance as tenh
 from ocean_perception_tpu_torch.imaging import formation as tform
 from ocean_perception_tpu_torch.imaging import illuminant as till
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 H, W = 96, 128
 B_TRUE = np.array([0.05, 0.10, 0.13], np.float32)
 BETA_B_TRUE = np.array([1.0, 0.7, 0.4], np.float32)

@@ -37,6 +37,18 @@ from ocean_perception_tpu_torch.mesher import landmark_graph as tlg
 from ocean_perception_tpu_torch.mesher import object_mesher as tom
 from ocean_perception_tpu_torch.ops import image as timg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 H, W = 120, 160
 
 

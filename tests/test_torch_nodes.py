@@ -51,6 +51,18 @@ from ocean_perception_tpu_torch.mesher.triangle_mesh import TriangleMesh
 from ocean_perception_tpu_torch.models.perception import PerceptionConfig
 from ocean_perception_tpu_torch.tracking.stereo_tracker import StereoTrackerState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 H, W = 120, 160
 CPU = "cpu"
 

@@ -32,6 +32,18 @@ from ocean_perception_tpu_torch.ops import histogram as thist
 from ocean_perception_tpu_torch.ops import image as timg
 from ocean_perception_tpu_torch.ops import lm as tlm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 F32_TOL = 1e-5
 
 

@@ -23,6 +23,18 @@ from ocean_perception_tpu_torch import convert
 from ocean_perception_tpu_torch.models import perception as tmodel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scene(H, W, d, seed=0):
     """Box-smoothed random canvas, right(y, x - d) == left(y, x), tinted."""
     rng = np.random.default_rng(seed)

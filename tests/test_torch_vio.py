@@ -29,6 +29,18 @@ from ocean_perception_tpu_torch.vio import odometry as todo
 from ocean_perception_tpu_torch.vio import smoother as tsm
 from test_smoother import G_UNIT, GRAVITY, N_IMU, build_window, simulate
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's thread pool in each would oversubscribe
+    the cores (these tests launch many small ops; under the suite's load
+    the pools' spinning threads slow every worker's tests)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 F64 = 1e-9
 
 
