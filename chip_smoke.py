@@ -16,11 +16,14 @@ disparity and motion, in phases:
    lookups tie and clamp and whose mask fires), with their times, bounds
    and the match's chain of dependent round trips (below); then the
    Sea-thru fits' LM kernels, ``lm_solve_small`` (the damped normal
-   equations and their solve, a warp a system) and ``lm_row_sum`` (the error
-   sums), against their twins on the first launch of each shape of one
+   equations and their solve, a block a system) and ``lm_row_sum`` (the
+   error sums), against their twins on the first launch of each shape of one
    perception step (bit-identical), with their times, bounds and the time of
    one PyTorch call of the same function (``torch.linalg.solve_ex`` on the
-   damped systems, ``torch.sum``);
+   damped systems, ``torch.sum``); ``lm_solve_small`` also on an adversarial
+   batch (``lm_adversarial``: a pivot tie, a zero column, a NaN, columns
+   over 10^8) at each of those shapes, bit for bit with its NaNs in the same
+   places, and with its chain of dependent operations beside its bound;
 4. ``perception_step`` end to end: three runs of 8 frames, checking the
    kernels' launch counts, finite outputs and the disparity against the
    scene's truth; its host syncs a frame (there must be none); then the
@@ -1667,6 +1670,49 @@ def lm_bound(name: str, args: tuple) -> dict:
     return bound(size * (J.numel() + r.numel() + lam.numel() + M * P), M * ops, peak)
 
 
+def lm_chain(N: int, P: int) -> dict:
+    """The longest chain of dependent operations of one system of
+    lm_solve_small, each taken at OP_CYCLES: a product and the tree's
+    log2(Np) levels of sums, the damping's product and sum, then for each
+    elimination step k its pivot, a comparison tree over the P - k
+    candidate rows, and (but for the last) its quotient, product and
+    difference, and the back substitution's P quotients, each but the last
+    followed by a product and a difference."""
+    levels = max(N - 1, 0).bit_length()
+    pivots = sum((P - k - 1).bit_length() for k in range(P))
+    ops = 1 + levels + 2 + pivots + 3 * (P - 1) + P + 2 * (P - 1)
+    return dict(chain_ops=ops, chain_ms=1e3 * ops * OP_CYCLES / CLOCK_HZ)
+
+
+def lm_adversarial(N: int, P: int, dtype, device, seed: int = 11):
+    """Four (N, P) systems (J, r, lam) on which a solve's corner cases show:
+    0, columns P-2 and P-1 equal and opposite, ten times column 0, so that
+    rows P-2 and P-1 tie for the first pivot (the first must win); 1, a zero
+    column and lam 0, a zero pivot (the step is not finite); 2, a NaN in J;
+    3, columns scaled over 10^8. Needs P >= 3 and N >= 4."""
+    rng = np.random.default_rng(seed)
+    J = rng.normal(size=(4, N, P))
+    t = P - 2
+    J[0, :, t] = 10.0 * J[0, :, 0] + 0.1 * rng.normal(size=N)
+    J[0, :, t + 1] = -J[0, :, t]
+    J[1, :, 1] = 0.0
+    J[2, 3, P // 2] = np.nan
+    J[3] *= 10.0 ** rng.uniform(-8, 0, size=(1, P))
+    r = rng.normal(size=(4, N))
+    lam = np.array([1e-3, 0.0, 1e-2, 1e-6])
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (J, r, lam))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, type and bits, NaNs compared by their places only (the
+    host's and the card's NaNs differ in sign and payload)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(na, nb) and torch.equal(a[~na].view(ints), b[~nb].view(ints))
+
+
 def library_ms(fn, n: int = N_TIMED) -> float | None:
     """Device time of one library call in ms: ``torch.profiler`` over n
     calls of fn(), the device time of every kernel, copy and set the window
@@ -1683,13 +1729,36 @@ def library_ms(fn, n: int = N_TIMED) -> float | None:
     return total_us / 1e3 / n if total_us > 0 else None
 
 
+def require_lm_adversarial(tag: str, N: int, P: int, dtype, device) -> None:
+    """lm_solve_small on lm_adversarial's batch, both dampings: the same
+    bits as its twin (NaNs in the same places), each system alone as in
+    the batch, the zero pivot's step not finite."""
+    J, r, lam = lm_adversarial(N, P, dtype, device)
+    for marquardt in (False, True):
+        got = cuda.lm_solve_small(J, r, lam, marquardt)
+        if not same_bits(got, lm.lm_step_plain(J, r, lam, marquardt)):
+            raise AssertionError(f"{tag} adversarial (marquardt={marquardt}): kernel differs "
+                                 f"from its plain twin")
+        for i in range(J.shape[0]):
+            if not same_bits(cuda.lm_solve_small(J[i], r[i], lam[i], marquardt), got[i]):
+                raise AssertionError(f"{tag} adversarial system {i}: alone differs from batched")
+        if torch.isfinite(got[1]).all() or not torch.isnan(got[2]).any():
+            raise AssertionError(f"{tag} adversarial: the zero pivot's or the NaN's step is finite")
+    print(f"[lm adversarial] {tag}: pivot tie, zero column, NaN, columns over 10^8 (N={N}, "
+          f"P={P}, {str(dtype)[6:]}): bit-identical to the twin, NaNs in the same places, each "
+          f"system alone as batched")
+
+
 def phase_lm_kernels(calls: dict, tag: str = "") -> dict:
     """lm_solve_small and lm_row_sum against their twins on the first
     launch of each shape one enhanced step made (bit-identical), with their
     times, bounds and the time of one PyTorch call of the same function on
     the same inputs (library_ms): torch.linalg.solve_ex on the damped systems
-    (the solve alone, without the normal equations), torch.sum over the rows."""
-    rows = {}
+    (the solve alone, without the normal equations), torch.sum over the rows.
+    lm_solve_small also prints its chain (lm_chain) beside its bound, and is
+    held to its twin on lm_adversarial's batch once for each (N, P) and
+    dtype (require_lm_adversarial)."""
+    rows, adversarial = {}, set()
     for name, launches in calls.items():
         first = {}
         for args in launches:
@@ -1714,9 +1783,16 @@ def phase_lm_kernels(calls: dict, tag: str = "") -> dict:
             measured.append(t)
             bounds.append(bd)
             lib.append(t["library_ms"])
+            chain = ""
+            if name == "lm_solve_small":
+                ch = lm_chain(*shape[-2:])
+                chain = f", chain {ch['chain_ops']} operations {1e3 * ch['chain_ms']:.4f} us"
+                if (shape[-2:], J.dtype) not in adversarial:
+                    require_lm_adversarial(f"{name}{tag} {shape}", *shape[-2:], J.dtype, J.device)
+                    adversarial.add((shape[-2:], J.dtype))
             print(f"[{name}{tag}] {shape}: {times_line(t)}; one PyTorch call "
                   f"{fmt_ms(t['library_ms'])} (profiler); bound {1e3 * bd['bound_ms']:.4f} us "
-                  f"({bd['bound_by']}); bit-identical to its twin")
+                  f"({bd['bound_by']}){chain}; bit-identical to its twin")
         rows[name] = dict(max_abs_err=max(errs), **summarize(measured),
                           bound_ms=statistics.mean(bd["bound_ms"] for bd in bounds),
                           bound_by=bounds[0]["bound_by"],

@@ -459,7 +459,7 @@ def _lm_entry(name: str, dtype: torch.dtype):
 
 
 def lm_solve_small(J, r, lam, marquardt: bool) -> torch.Tensor:
-    """Each system's damped LM step, one launch (csrc/lm_solve.cu, a warp
+    """Each system's damped LM step, one launch (csrc/lm_solve.cu, a block
     a system): (..., N, P) J, (..., N) r and (...) lam, all float32 or all
     float64, give the (..., P) solution of (JtJ + lam * damp) x = -Jtr; see
     ops/lm.py::lm_step_plain."""

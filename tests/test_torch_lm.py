@@ -14,8 +14,16 @@ arithmetic in a fixed order for each system.
 - ``tree_sum_plain`` against a float64 sum, padded lengths included;
 - ``enhance_underwater`` on 3 cameras in one call equals each camera's own
   call bit for bit on the CPU;
-- on the card (``gpu``): ``lm_solve_small`` and ``lm_row_sum`` equal their
-  twins bit for bit at 1, 4 and 64 systems, and camera 1 of the fleet of
+- ``chip_smoke.lm_adversarial``'s batch does what it is for: its first
+  system's first pivot is a tie whose other choice gives other bits, its
+  zero pivot and its NaN give steps that are not finite;
+- on the card (``gpu``): ``lm_solve_small`` equals its twin bit for bit
+  (``chip_smoke.same_bits``: integer bits, NaNs in their places) at the
+  perception step's systems (1, 2, 3 at B=1; 4, 8, 12 at B=4; N=256, P=12),
+  at 64, at P = 1 and 16, at N = 20, 33, 300 and 4096 (J from device memory),
+  and in float64 at trilateration's (1, 8, 3) and at (4, 256, 12); on the
+  adversarial batch too; each system alone equals itself in its batch.
+  ``lm_row_sum`` equals its twin, and camera 1 of the fleet of
   ``chip_smoke.py`` phase 13 (uint8 mono 720p at the farm point) has the
   same enhanced image at B=4 as alone, in each of its 8 timed calls.
 
@@ -34,16 +42,15 @@ from ocean_perception_tpu_torch.ops import lm
 P, N = 12, 256
 
 
-def _systems(M, seed=0, scale_spread=4.0):
-    """M weighted least-squares problems (J (M, N, P), r (M, N), lam (M,)),
+def _systems(M, seed=0, scale_spread=4.0, n=N, p=P, dtype=np.float32):
+    """M weighted least-squares problems (J (M, n, p), r (M, n), lam (M,)),
     columns scaled over 10^scale_spread as the Sea-thru Jacobians are."""
     rng = np.random.default_rng(seed)
-    J = rng.normal(size=(M, N, P)) * 10.0 ** rng.uniform(-scale_spread, 0, size=(M, 1, P))
-    J[:, N // 2:] *= rng.random((M, 1, 1)) < 0.5  # some systems with half their rows masked
-    r = rng.normal(size=(M, N))
+    J = rng.normal(size=(M, n, p)) * 10.0 ** rng.uniform(-scale_spread, 0, size=(M, 1, p))
+    J[:, n // 2:] *= rng.random((M, 1, 1)) < 0.5  # some systems with half their rows masked
+    r = rng.normal(size=(M, n))
     lam = 10.0 ** rng.uniform(-6, 0, size=M)
-    return (torch.from_numpy(J.astype(np.float32)), torch.from_numpy(r.astype(np.float32)),
-            torch.from_numpy(lam.astype(np.float32)))
+    return tuple(torch.from_numpy(a.astype(dtype)) for a in (J, r, lam))
 
 
 @pytest.mark.parametrize("marquardt", [False, True])
@@ -105,6 +112,30 @@ def test_tree_sum_plain(n):
     assert torch.equal(lm.tree_sum_plain(x.T.contiguous(), dim=0), got)
 
 
+@pytest.mark.parametrize("n, p, dtype", [(N, P, torch.float32), (8, 3, torch.float64)])
+def test_adversarial_batch_on_cpu(n, p, dtype):
+    import chip_smoke as cs
+
+    J, r, lam = cs.lm_adversarial(n, p, dtype, "cpu")
+    t = p - 2
+    for marquardt in (False, True):
+        A, b = lm.damped_system(J, r, lam, marquardt)
+        col = A[0, :, 0].abs()
+        assert col[t] == col[t + 1] == col.max() > col[0] and A[0, t, 0] == -A[0, t + 1, 0]
+        step = lm.lm_step_plain(J, r, lam, marquardt)
+        assert torch.isfinite(step[0]).all() and torch.isfinite(step[3]).all()
+        assert not torch.isfinite(step[1]).all() and torch.isnan(step[2]).all()
+        for i in range(4):
+            assert cs.same_bits(lm.lm_step_plain(J[i], r[i], lam[i], marquardt), step[i])
+    # Rows t and t + 1 swapped are the same equations with the tie's other
+    # row first: the solve's bits change, so a kernel that took the other
+    # row would differ from the twin.
+    A, b = lm.damped_system(J, r, lam, False)
+    order = list(range(p))
+    order[t], order[t + 1] = t + 1, t
+    assert not cs.same_bits(lm.solve_plain(A[0, order], b[0, order]), lm.solve_plain(A[0], b[0]))
+
+
 def test_cpu_lm_launches_no_kernel():
     cuda.reset_launches()
     J, r, lam = _systems(2)
@@ -140,20 +171,56 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# (M, N, P, dtype): the perception step's systems at B=1 and B=4 (N=256,
+# P=12), a larger batch, the smallest and largest P, N under a warp, past a
+# power of two, and long enough to read J from device memory; trilateration's
+# float64 systems and the float64 build at the step's shape.
+SHAPES = [(1, 256, 12, torch.float32), (2, 256, 12, torch.float32), (3, 256, 12, torch.float32),
+          (4, 256, 12, torch.float32), (8, 256, 12, torch.float32), (12, 256, 12, torch.float32),
+          (64, 256, 12, torch.float32), (4, 256, 1, torch.float32), (4, 256, 16, torch.float32),
+          (4, 20, 12, torch.float32), (4, 33, 12, torch.float32), (4, 300, 12, torch.float32),
+          (2, 4096, 12, torch.float32), (2, 4096, 1, torch.float32), (1, 8, 3, torch.float64),
+          (4, 256, 12, torch.float64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 4, 64])
+@pytest.mark.parametrize("M, n, p, dtype", SHAPES, ids=lambda v: str(v).replace("torch.", ""))
 @pytest.mark.parametrize("marquardt", [False, True])
-def test_lm_solve_small_matches_twin(cuda_device, M, marquardt):
-    J, r, lam = (t.to(cuda_device) for t in _systems(M, seed=M))
+def test_lm_solve_small_matches_twin(cuda_device, M, n, p, dtype, marquardt):
+    from chip_smoke import same_bits
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    J, r, lam = (t.to(cuda_device) for t in _systems(M, seed=M + n + p, n=n, p=p, dtype=np_dtype))
     before = cuda.LAUNCHES["lm_solve_small"]
     got = cuda.lm_solve_small(J, r, lam, marquardt)
     torch.cuda.synchronize()
     assert cuda.LAUNCHES["lm_solve_small"] == before + 1
-    assert torch.equal(got, lm.lm_step_plain(J, r, lam, marquardt))
-    assert torch.equal(got.cpu(), lm.lm_step_plain(J.cpu(), r.cpu(), lam.cpu(), marquardt))
-    alone = cuda.lm_solve_small(J[-1].contiguous(), r[-1].contiguous(), lam[-1].contiguous(),
-                                marquardt)
-    assert torch.equal(alone, got[-1])
+    assert same_bits(got, lm.lm_step_plain(J, r, lam, marquardt))
+    assert same_bits(got.cpu(), lm.lm_step_plain(J.cpu(), r.cpu(), lam.cpu(), marquardt))
+    for i in {0, M - 1}:
+        alone = cuda.lm_solve_small(J[i].contiguous(), r[i].contiguous(), lam[i].contiguous(),
+                                    marquardt)
+        assert same_bits(alone, got[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, p, dtype", [(N, P, torch.float32), (8, 3, torch.float64),
+                                         (33, 16, torch.float32)])
+@pytest.mark.parametrize("marquardt", [False, True])
+def test_lm_solve_small_adversarial(cuda_device, n, p, dtype, marquardt):
+    """A pivot tie, a zero column (the step not finite), a NaN in J and
+    columns over 10^8 (chip_smoke.lm_adversarial): the kernel's bits are the
+    twin's on the card and on the CPU, NaNs in the same places, and each
+    system alone is itself in the batch."""
+    import chip_smoke as cs
+
+    J, r, lam = cs.lm_adversarial(n, p, dtype, cuda_device)
+    got = cuda.lm_solve_small(J, r, lam, marquardt)
+    assert cs.same_bits(got, lm.lm_step_plain(J, r, lam, marquardt))
+    assert cs.same_bits(got.cpu(), lm.lm_step_plain(J.cpu(), r.cpu(), lam.cpu(), marquardt))
+    assert not torch.isfinite(got[1]).all() and torch.isnan(got[2]).all()
+    for i in range(J.shape[0]):
+        assert cs.same_bits(cuda.lm_solve_small(J[i], r[i], lam[i], marquardt), got[i])
 
 
 @pytest.mark.gpu

@@ -289,3 +289,28 @@ def test_vio_loaders_match_jax(shared):
         else:
             assert a == b, f.name
     assert got.smoother.window == 40 and got.smoother.max_landmarks == 16
+
+
+
+def test_stereo_frontend_runs_on_the_card_unless_told(monkeypatch):
+    """``StereoFrontend`` takes its device through ``entry_device``, as the
+    port's other entry points do: the card by default, an error naming
+    ``device='cpu'`` without one; with ``device="cpu"`` it tracks the vision
+    mission's first frame (a keyframe whose landmarks lie on the 12 px
+    plane, a few stripe mismatches aside)."""
+    from ocean_perception_tpu_torch.core.cameras import PinholeCamera as TPinhole
+    from ocean_perception_tpu_torch.core.cameras import StereoCamera as TStereo
+    from ocean_perception_tpu_torch.vio.stereo_frontend import StereoFrontend
+
+    params = convert.frontend_params_from_jax(vision_params().frontend)
+    cam = TPinhole.create(FX, FX, W / 2, H / 2, H, W)
+    rig = TStereo.create(cam, cam, BASELINE)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StereoFrontend(params, rig)
+    frontend = StereoFrontend(params, rig, device="cpu")
+    vo = frontend.track(*vision_frames()[0])
+    assert frontend.device.type == "cpu" and vo.lmk_disparities.device.type == "cpu"
+    assert bool(vo.is_keyframe) and int(vo.lmk_valid.sum()) >= 64
+    on_plane = (vo.lmk_disparities[vo.lmk_valid] - DISP).abs() < 0.5
+    assert float(on_plane.float().mean()) > 0.9
