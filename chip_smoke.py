@@ -185,7 +185,10 @@ disparity and motion, in phases:
    cards is not exercised), at 720p with N in SHARD_BLOCKS blocks:
    ``sharded_patchmatch`` at the step's half resolution (D=64, bf16, 16
    x-strips, halo 5) with every ``pm_pass`` it launched against its twin
-   on the same inputs (bit-identical), its maps equal bit for bit to the
+   on the same inputs (bit-identical), and again on an adversarial seed
+   and on a tie volume of the same shapes (``adversarial_block_args``),
+   the passes' byte bound beside the line bytes their walks read, its
+   maps equal bit for bit to the
    one-device engine with ``chunks_y = N``, ``cost_volume`` N and
    ``pm_pass`` 12 N launches; ``sharded_perception_step`` (the main path
    of this phase: launches ``cost_volume`` N, ``pm_pass`` 12 N, the LM
@@ -193,7 +196,8 @@ disparity and motion, in phases:
    depth equal bit for bit to ``perception_step`` with ``chunks_y = N``
    and its enhanced image within the enhance tolerance (below);
    ``pm_pass``'s device time a launch by kind of pass (profiler, through
-   ``utils/profiling.trace``, whose trace also names each block's work);
+   ``utils/profiling.trace``, whose trace also names each block's work)
+   and the sharded match's device time (summed, and busy: the union);
    ms a frame by calls of the sharded step and match against the
    one-device ones; then the camera split, N_CAMERAS cameras over
    SHARD_ENTRIES entries: ``multi_camera_step`` (disparity, depth and
@@ -557,6 +561,13 @@ def adversarial_seed(shape, D: int, device, seed: int = 5):
     d[rng.random(shape) < 0.25] = 0
     noise = (rng.integers(-64, 64, shape[-2:]) / 64).astype(np.float32)
     return torch.from_numpy(d).to(device), torch.from_numpy(noise).to(device)
+
+
+def tie_volume(shape, dtype, device, seed: int = 7) -> torch.Tensor:
+    """A volume whose costs tie often: 4 values, so most compares meet equal
+    costs, and the mask's threshold improve * cost(0) falls on both sides."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.integers(1, 5, shape) / 4).astype(np.float32)).to(device, dtype)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1709,7 +1720,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     na, nb = torch.isnan(a), torch.isnan(b)
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64,
+            torch.bfloat16: torch.int16}[a.dtype]
     return torch.equal(na, nb) and torch.equal(a[~na].view(ints), b[~nb].view(ints))
 
 
@@ -3370,9 +3382,38 @@ def pass_bytes(args) -> float:
     return read + written + pixels * e
 
 
+def line_bytes(args) -> float:
+    """The volume lines one pm_pass's walks read: the D costs of every step
+    of every scan line, a column of the block's strip (chunk + 2 halo steps)
+    or a row of an x-strip (its chunk + 2 halo steps)."""
+    C, _, _, _, _, axis, _, block, p = args[:9]
+    W, line = C.shape[1], C.shape[2] * C.element_size()
+    if axis == 0:
+        return (block.chunk + 2 * p.halo) * W * line
+    chunks = pm._effective_chunks(W, p.chunks)
+    return block.chunk * chunks * (W // chunks + 2 * p.halo) * line
+
+
+def adversarial_block_args(args, inputs: str) -> tuple:
+    """A recorded pm_pass's arguments with adversarial inputs of the same
+    shapes: fronts from adversarial_seed (each cost the volume's at its
+    disparity, as after any pass) and its noise, on the pass's volume
+    ("adversarial seed") or on a tie_volume of its shape ("tie volume")."""
+    C, disp, _, noise, direction, axis, fold, block, p = args[:9]
+    if inputs == "tie volume":
+        C = tie_volume(tuple(C.shape), C.dtype, C.device)
+    d, nz = adversarial_seed(tuple(disp.shape), C.shape[2], C.device)
+    at = block.front_row0 - block.vol_row0
+    cost = pm._full_cost_map(C[at:at + d.shape[0]], d, p.patch_radius)
+    return (C, d, cost, None if noise is None else nz[:block.chunk], direction, axis, fold,
+            block, p, *args[9:])
+
+
 def check_block_passes(calls: list, tag: str) -> dict:
     """Each recorded pm_pass against its twin on the same inputs on the card
-    (bit-identical); the twin's mean time a pass; the passes' mean bound."""
+    (bit-identical), then on adversarial inputs of the same shapes
+    (adversarial_block_args); the twin's mean time a pass; the passes' mean
+    bound and the lines their walks read."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     plain = [pm._block_pass_plain(*args) for args, _ in calls]
@@ -3386,31 +3427,55 @@ def check_block_passes(calls: list, tag: str) -> dict:
             if a is not None:
                 require_equal(f"{tag} pm_pass (axis {args[5]}, rows {args[7].row0}+)", a, b)
                 err = max(err, max_abs(a, b))
+    for inputs in ("adversarial seed", "tie volume"):
+        kept = []
+        for args, _ in calls:
+            adv = adversarial_block_args(args, inputs)
+            ours, ref = pm.block_pass(*adv), pm._block_pass_plain(*adv)
+            for a, b in zip(ours, ref):
+                if (a is None) != (b is None) or (a is not None and not same_bits(a, b)):
+                    raise AssertionError(f"{tag} {inputs}: pm_pass (axis {args[5]}, fold "
+                                         f"{args[6]}, rows {args[7].row0}+) differs from its twin")
+            if args[5] == 0 and args[6]:
+                kept.append(float((ours[0] > 0).float().mean()))
+        print(f"[sharded {tag}] pm_pass equals its twin bit for bit on the {inputs} at every "
+              f"pass of a frame; the masked passes keep {min(kept):.3f}-{max(kept):.3f} of their "
+              f"pixels")
     nbytes = statistics.mean(pass_bytes(args) for args, _ in calls)
+    lines = statistics.mean(line_bytes(args) for args, _ in calls)
     # One Python call of each kind of pass (the first of each), the host's
     # enqueue included; the mean over the kinds.
     kinds = {(args[5], args[6]): args for args, _ in reversed(calls)}
     call = statistics.mean(call_ms(lambda a=args: pm.block_pass(*a)) for args in kinds.values())
     return dict(max_abs_err=err, call_ms=call, plain_ms=start.elapsed_time(end) / len(calls),
-                bytes=nbytes, **bound(nbytes))
+                bytes=nbytes, line_bytes=lines, **bound(nbytes))
 
 
 def pass_device_times(fn, tag: str) -> dict:
     """pm_pass's device time a launch over one call of fn(), by the
     profiler (utils/profiling.trace; the trace goes to TRACE_DIR), by kind
-    of pass; and the block regions the call named (Queue.run)."""
+    of pass; the call's device time, summed over every kernel and copy and
+    as their union on the card's clock (busy), with the names that took
+    most; and the block regions the call named (Queue.run)."""
     fn()
     torch.cuda.synchronize()
     with profiling.trace(str(TRACE_DIR / tag.replace(" ", "_"))) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds, total, count, regions = {}, 0.0, 0, 0
+    def on_card(e, name):  # a kernel or a copy; not a region's range on the card's timeline
+        return (e.device_type == DeviceType.CUDA and not name.startswith("block ")
+                and not getattr(e, "is_user_annotation", False))
+
+    kinds, total, count, regions, device, names = {}, 0.0, 0, 0, 0.0, {}
     for e in prof.key_averages():
         if e.key.startswith("block "):
             regions += e.count
+        if on_card(e, e.key):
+            device += e.device_time_total
+            names[e.key] = (e.device_time_total, e.count)
         if e.device_type != DeviceType.CUDA or launch_name(e.key) != "pm_pass":
             continue
-        m = re.search(r"pm_pass_kernel<[^,]+, (\d), (true|false)>", e.key)
+        m = re.search(r"pm_pass_kernel<[^,]+, (\d), (true|false)[,>]", e.key)
         kind = PASS_KINDS[m.groups()] if m else e.key
         k_total, k_count = kinds.get(kind, (0.0, 0))
         kinds[kind] = (k_total + e.device_time_total, k_count + e.count)
@@ -3421,7 +3486,19 @@ def pass_device_times(fn, tag: str) -> dict:
              f"{total / count:.2f} us a launch over {count} launches; "
              + ", ".join(f"{k} {t / c:.2f} us x{c}" for k, (t, c) in kinds.items()))
           + f"; {regions} named block regions in the trace")
-    return dict(profiler_ms=total / count / 1e3 if count else "not measured", profiled=count)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if on_card(e, e.name))
+    busy, reach = 0.0, float("-inf")
+    for start, end in spans:  # the union of the intervals
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:4]
+    print(f"[sharded {tag}] the call's device time: {device / 1e3:.3f} ms summed over "
+          f"{len(spans)} kernels and copies, {busy / 1e3:.3f} ms busy (their union); most in "
+          + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms x{c}" for k, (v, c) in top))
+    return dict(profiler_ms=total / count / 1e3 if count else "not measured", profiled=count,
+                call_device_ms=device / 1e3 if device else "not measured",
+                call_busy_ms=busy / 1e3 if spans else "not measured")
 
 
 def phase_sharded(canvas, rig, config, dev) -> dict:
@@ -3499,10 +3576,15 @@ def phase_sharded(canvas, rig, config, dev) -> dict:
               f"({line}); valid {frac:.4f}, median |d - {TRUE_DISP}| {med:.4f} px; pm_pass "
               f"equals its twin on all {len(calls)} passes of a frame (call "
               f"{checked['call_ms'] * 1e3:.1f} us, plain {checked['plain_ms']:.3f} ms a pass, bound {checked['bound_ms'] * 1e3:.3f} us, "
-              f"{checked['bytes'] / 1e6:.3f} MB a pass); ms a frame by calls: sharded step "
-              f"{frame['sharded_step']:.3f} against {frame['single_step']:.3f} single "
-              f"(chunks_y={n}), sharded match {frame['sharded_match']:.3f} against "
-              f"{frame['single_match']:.3f} single")
+              f"{checked['bytes'] / 1e6:.3f} MB a pass; the walks' lines "
+              f"{checked['line_bytes'] / 1e6:.3f} MB a pass, "
+              f"{checked['line_bytes'] / PEAK_BYTES_PER_S * 1e6:.3f} us at 3.35 TB/s); ms a frame "
+              f"by calls: sharded step {frame['sharded_step']:.3f} against "
+              f"{frame['single_step']:.3f} single (chunks_y={n}), sharded match "
+              f"{frame['sharded_match']:.3f} against {frame['single_match']:.3f} single; the "
+              f"sharded match's device time {fmt_ms(times['call_device_ms'])} summed, "
+              f"{fmt_ms(times['call_busy_ms'])} busy (profiler, every kernel and copy of one "
+              f"call)")
         row = dict(launches=launches["pm_pass"], max_abs_err=checked["max_abs_err"],
                    ms=times["profiler_ms"], device_ms=times["profiler_ms"],
                    device_method="profiler", call_ms=checked["call_ms"],

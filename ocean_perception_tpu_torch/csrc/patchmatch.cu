@@ -99,8 +99,35 @@
 //    the round trips it saves.
 //  - Column passes (lanes are columns): one thread per (strip, column) walks
 //    its positions over device memory. Its lanes' fronts and candidates are
-//    already neighbours in memory, and neither staging nor speculating beat
-//    it on the card.
+//    already neighbours in memory, and over pm_match's strips of 34
+//    positions neither staging nor speculating beat it on the card.
+//
+// pm_pass walks differently: a warp a scan line (PERF.md). Its column pass
+// is one strip a block, chunk + 2*halo positions (190 at N=2, 100 at N=4 on
+// the 720p block). With a thread a column (col_pass) only W threads walk (5
+// blocks at W=640), each step a chain of three L2 trips (the gather, whose
+// address needs the carry, then the front loads behind the previous step's
+// stores): 80-112 us a launch at N=2 on an H100, against a byte bound of
+// 0.5 us. What a walk visits does not depend on the carry; only the index
+// within a pixel's line of D costs does. So a warp walks one scan line (a
+// column, or one row of an x-strip; kWalkWarps walks a block) in batches of
+// kWalkWords / NW steps: while it walks one batch, the next batch's lines
+// (NW * 128 bytes at most) go to a shared-memory ring by 16-byte cp.async,
+// and its pass-start fronts to registers, one step a lane. Every lane runs
+// the same compares, so the carry stays uniform. The lookups leave the chain
+// (see walk): the lane of step i looks up, in its own line and before the
+// walk, the two candidate costs that follow a failure or one success, and
+// the third, after two successes, is looked up two steps ahead; the mask's
+// cost(0) and the refresh's lookup come from the same line. A walk reads its
+// lines once: 190 * 640 * 128 B = 15.6 MB a column pass at N=2 (4.6 us at
+// 3.35 TB/s; the block's volume stays in the 50 MB L2 between passes). What
+// bounds it now is the walk's own issue, about 90-100 cycles a step of one
+// warp's in-order instructions (clock64 stamps) for 2 on the chain: 16 us a
+// C+/C- launch at N=2, 11 us at N=4. Variants, in turns (pass_turns.py):
+// kWalkWords, kWalkWarps, kWalkRows (row passes as row_pass). Lines in
+// registers looked up by shuffles, and lines by cp.async.bulk (issued one
+// lane at a time), were slower. A line that is not whole 16-byte pieces, or
+// longer than 512 bytes, takes col_pass and row_pass.
 //
 // All costs are compared as float32 (exact for bf16 values); lookups round
 // half to even (rintf) like jnp.round; no floating-point operation here can
@@ -108,6 +135,7 @@
 // power-of-two noise scales; improve * cost(0)) are pinned with intrinsics.
 
 #include <algorithm>
+#include <cstdint>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -477,18 +505,318 @@ pm_match_kernel(RowVol rvol, ColVol cvol, Match<T> a) {
   }
 }
 
+// pm_pass's walks: a warp a scan line (see the note above).
+constexpr int kWalkWords = 32;  // a batch is kWalkWords / NW steps: 4 KB of lines a walk
+constexpr int kWalkRows = 1;    // 0: row passes run row_pass, a block a kLanes rows
+constexpr int kWalkWarps = 2;   // walks of a block (<= kThreads / 32)
+constexpr unsigned kFull = 0xffffffffu;
+
+// A cost as a float (a bf16 cost is exact, its low 16 bits zero) and back to
+// the element's bits; a line's costs are read from its 4-byte words.
+template <typename T>
+struct Cost;
+template <>
+struct Cost<float> {
+  static constexpr int kShift = 0;  // log2 of the elements of a word
+  // The element's bits, and the cost they hold (kept apart so that the
+  // conversion is not placed right behind the load).
+  __device__ static __forceinline__ unsigned load_bits(const float* p) {
+    return __float_as_uint(__ldg(p));
+  }
+  __device__ static __forceinline__ float value(unsigned bits) { return __uint_as_float(bits); }
+  __device__ static __forceinline__ void store(float* p, float c) { *p = c; }
+  // Permute selector that moves element e's bits of a word into place.
+  __device__ static __forceinline__ unsigned selector(int) { return 0x3210u; }
+};
+template <>
+struct Cost<__nv_bfloat16> {
+  static constexpr int kShift = 1;
+  __device__ static __forceinline__ unsigned load_bits(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static __forceinline__ float value(unsigned bits) { return __uint_as_float(bits << 16); }
+  __device__ static __forceinline__ void store(__nv_bfloat16* p, float c) {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)(__float_as_uint(c) >> 16);
+  }
+  // The high half of word: element e & 1 into the high half, zeros below.
+  __device__ static __forceinline__ unsigned selector(int e) { return e & 1 ? 0x3244u : 0x1044u; }
+};
+
+// A batch of K steps' lines in the warp's shared-memory ring, line i at
+// w[i * kStride], filled by 16-byte cp.async: the lane of step i works out
+// the line's address and the warp copies it. at(i, e) is cost e of line i.
+template <typename T, int K, int NW>
+struct Lines {
+  static constexpr int kStride = NW * 32 + 4;  // words a line, padded by 16 bytes
+  static constexpr int kWords = K * kStride;
+  unsigned* w;
+  // mine: the line of this lane's step (lanes >= live: of the last step).
+  __device__ __forceinline__ void load(const unsigned* mine, int nwords, int live, int lane) {
+    __syncwarp();  // every lane has read the batch this one replaces
+    constexpr int kChunks = NW * 8;  // 16-byte pieces a line slot holds
+#pragma unroll
+    for (int g0 = 0; g0 < K * kChunks; g0 += 32) {
+      const int g = g0 + lane, i = g / kChunks, c = g % kChunks;
+      const unsigned long long src = __shfl_sync(kFull, (unsigned long long)mine, i);
+      if (i < live && c < nwords / 4) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(w + i * kStride + 4 * c)),
+                     "l"(src + 16ull * c) : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  // This batch's copies are done; with next, the next batch's may still run.
+  __device__ __forceinline__ void ready(bool next) const {
+    if (next) {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncwarp();
+  }
+  __device__ __forceinline__ float at(int i, int e) const {
+    return __uint_as_float(
+        __byte_perm(w[i * kStride + (e >> Cost<T>::kShift)], 0, Cost<T>::selector(e)));
+  }
+};
+
+// One scan line of a pm_pass walked by a warp: a column of the block's
+// strip (kAxis 0) or one row of an x-strip (kAxis 1). Step s is position
+// u = start + j, j = s (forward) or n - 1 - s, at v = clamp(u, 0, len - 1);
+// position v is volume line vol + v * step and front and output element
+// front + v * step and out + v * step.
+struct ScanLine {
+  long long vol, front, out;
+  int step, n, len, start, lo, hi, halo, chunk;
+  bool lane_ok;  // the column (kAxis 0) or the row (kAxis 1) is inside [pr, size - pr - 1]
+  float lim;     // a column's x - pr
+};
+
+// What a step of a batch needs from its lane, in the warp's shared memory
+// (see walk): its lookups (ef in bits 0-9, lookup_index(lim) in 10-19, the
+// validity in bit 30), its pass-start cost and disparity, and the costs A0
+// and A1 (bf16: A0 in the high half of one word, A1 in the low half). A
+// walk's D is at most 256 (a line of 512 bytes).
+template <typename T>
+struct __align__(16) Step {
+  unsigned pk, cost, disp, a0, a1, unused[3];
+  __device__ __forceinline__ static Step make(unsigned pk, float c, float d, float a0, float a1) {
+    return {pk, __float_as_uint(c), __float_as_uint(d), __float_as_uint(a0), __float_as_uint(a1),
+            {0u, 0u, 0u}};
+  }
+  __device__ __forceinline__ float A0() const { return __uint_as_float(a0); }
+  __device__ __forceinline__ float A1() const { return __uint_as_float(a1); }
+};
+template <>
+struct __align__(16) Step<__nv_bfloat16> {
+  unsigned pk, cost, disp, a01;
+  __device__ __forceinline__ static Step make(unsigned pk, float c, float d, float a0, float a1) {
+    return {pk, __float_as_uint(c), __float_as_uint(d),
+            __byte_perm(__float_as_uint(a0), __float_as_uint(a1), 0x3276)};
+  }
+  __device__ __forceinline__ float A0() const { return __uint_as_float(a01 & 0xffff0000u); }
+  __device__ __forceinline__ float A1() const { return __uint_as_float(a01 << 16); }
+};
+constexpr int kField = 10;
+constexpr unsigned kFieldMask = (1u << kField) - 1;
+
+// The walk of one scan line by one warp. Step i's candidate is lookup_index
+// (min(carry, lim_i)). With Ll_i = lookup_index(lim_i), monotone along the
+// walk, and lookup_index monotone, that index is min(H_i, Ll_i): H_i is
+// ef_{f+1} = lookup_index(min(d_f, lim_{f+1})) of the last failed step f
+// (d_f its pass-start disparity), and H_i = better_{i-1} ? H_{i-1} : ef_i.
+// So the candidate's cost is A0_i = line_i[ef_i] after a failure, A1_i =
+// line_i[min(ef_{i-1}, Ll_i)] after one success that followed a failure, and
+// line_i[min(H_{i-2}, Ll_i)] after two successes. The lane of step i looks
+// up A0 and A1 in its own line before the walk; the third lookup waits only
+// on the compare two steps back, so the chain of a step is a select and a
+// compare.
+template <typename T, int kAxis, bool kFold, int NW>
+__device__ __forceinline__ void walk(const T* __restrict__ C, const float* __restrict__ disp_in,
+                                     const T* __restrict__ cost_in,
+                                     const float* __restrict__ noise, float* __restrict__ disp_out,
+                                     T* __restrict__ cost_out, const ScanLine& sl,
+                                     Lines<T, kWalkWords / NW, NW>& A,
+                                     Lines<T, kWalkWords / NW, NW>& B, Step<T>* info, int D,
+                                     int pr,
+                                     float scale, float improve, bool forward) {
+  constexpr int K = kWalkWords / NW;
+  static_assert(K >= 1 && K <= 32, "a batch's steps are one a lane");
+  constexpr bool kRefresh = kFold && kAxis == 1, kMask = kFold && kAxis == 0;
+  using L_t = Lines<T, K, NW>;
+  const int lane = threadIdx.x & 31;
+  const int n = sl.n, nwords = D * (int)sizeof(T) / 4;
+  const unsigned* Cw = reinterpret_cast<const unsigned*>(C);
+  auto u_of = [&](int s) { return sl.start + (forward ? s : n - 1 - s); };
+  auto v_of = [&](int s) { return clampi(u_of(s), 0, sl.len - 1); };
+
+  // The batch of steps s0 .. s0 + K - 1: its lines into L, its pass-start
+  // fronts (the noise instead of the cost with kRefresh) one step a lane,
+  // as bits until the batch is walked. Every load is unconditional, from
+  // the last step's place past n: a conditional one would be merged by a
+  // select that waits for it.
+  auto load = [&](int s0, L_t& L, float& fd, unsigned& fc) {
+    const int v = v_of(min(s0 + lane, n - 1));
+    L.load(Cw + (sl.vol + (long long)v * sl.step) * nwords, nwords, n - s0, lane);
+    const long long f = sl.front + (long long)v * sl.step;
+    fd = __ldg(disp_in + f);
+    fc = kRefresh ? __float_as_uint(__ldg(noise + f)) : Cost<T>::load_bits(cost_in + f);
+  };
+
+  // The front starts at the predecessor of the strip's first position.
+  const int first = clampi(sl.start + (forward ? 0 : n - 1), 0, sl.len - 1);
+  const long long pred =
+      sl.front + (long long)clampi(first + (forward ? -1 : 1), 0, sl.len - 1) * sl.step;
+  float carry = __ldg(disp_in + pred);
+  if (kRefresh) carry = refreshed(carry, __ldg(noise + pred), scale);
+  // Carried from step to step: the last two compares, H of the last two
+  // steps; and from batch to batch, the last step's d and ef.
+  bool b1 = false, b2 = false;
+  int H1 = 0, H2 = 0;
+  float prev_d = carry;
+  int prev_ef = 0;
+
+  // Walk the batch from s0 in L. Lane k first works out step s0 + k's
+  // pass-start pair and lookups into info[k]; the walk takes each step's
+  // from there, and lane k keeps step s0 + k's outputs and writes them
+  // after. No store inside the walk, so its loads can go out early.
+  auto run = [&](int s0, const L_t& L, float fd, unsigned fc) {
+    const int s = s0 + lane, k = min(lane, K - 1);
+    const int u = u_of(s), v = clampi(u, 0, sl.len - 1);
+    const float lim = kAxis == 0 ? sl.lim : (float)(v - pr);
+    const int Ll = lookup_index(lim, D);
+    float d = fd, c;
+    if (kRefresh) {
+      d = refreshed(fd, __uint_as_float(fc), scale);
+      c = L.at(k, lookup_index(fminf(d, lim), D));
+    } else {
+      c = Cost<T>::value(fc);
+    }
+    float before = __shfl_up_sync(kFull, d, 1);
+    before = lane == 0 ? prev_d : before;
+    const int ef = lookup_index(fminf(before, lim), D);
+    int ef_before = __shfl_up_sync(kFull, ef, 1);
+    ef_before = lane == 0 ? prev_ef : ef_before;
+    prev_d = __shfl_sync(kFull, d, K - 1);
+    prev_ef = __shfl_sync(kFull, ef, K - 1);
+    const unsigned ok = u >= sl.lo && u < sl.hi && sl.lane_ok ? 1u << 30 : 0u;
+    const Step<T> mine = Step<T>::make(ok | (unsigned)Ll << kField | (unsigned)ef, c, d,
+                                       L.at(k, ef), L.at(k, min(ef_before, Ll)));
+    __syncwarp();  // the previous batch has read info
+    if (lane < K) info[lane] = mine;
+    __syncwarp();
+
+    // The third candidate of step i, line_i[min(H_{i-2}, Ll_i)], is looked up
+    // at step i - 2, as soon as H_{i-2} is known: third holds step i's,
+    // third_next step i + 1's.
+    static_assert(K >= 2, "the lookups run two steps ahead");
+    auto Ll_of = [&](int i) { return (int)(info[i].pk >> kField & kFieldMask); };
+    float third = L.at(0, min(H2, Ll_of(0))), third_next = L.at(1, min(H1, Ll_of(1)));
+    float od = 0.f, oc = 0.f;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {  // the steps past n compute what nothing reads
+      const Step<T> q = info[i];
+      const int ef_i = q.pk & kFieldMask;
+      const float cur_c = __uint_as_float(q.cost);
+      const float cand_c = b1 ? (b2 ? third : q.A1()) : q.A0();
+      const bool better = (q.pk >> 30) != 0 && cand_c < cur_c;
+      const float lim_i = kAxis == 0 ? sl.lim : (float)(v_of(s0 + i) - pr);
+      const int H = b1 ? H1 : ef_i;
+      carry = better ? fminf(carry, lim_i) : __uint_as_float(q.disp);
+      b2 = b1;
+      b1 = better;
+      H2 = H1;
+      H1 = H;
+      third = third_next;
+      if (i + 2 < K) third_next = L.at(i + 2, min(H, Ll_of(i + 2)));
+      const bool me = lane == i;
+      od = me ? carry : od;
+      oc = me ? (better ? cand_c : cur_c) : oc;
+    }
+    if (lane < K && s < n) {
+      const int j = forward ? s : n - 1 - s;
+      if (j >= sl.halo && j < sl.halo + sl.chunk) {
+        const long long o = sl.out + (long long)u * sl.step;
+        if (kMask) {
+          const bool keep = oc < __fmul_rn(improve, L.at(lane, 0));
+          const bool interior = v >= pr && v <= sl.len - pr - 1 && sl.lane_ok;
+          disp_out[o] = keep && interior ? od : 0.f;
+        } else {
+          disp_out[o] = od;
+          Cost<T>::store(cost_out + o, oc);
+        }
+      }
+    }
+  };
+
+  // Two batches in flight: while the warp walks one, the next one loads.
+  float fdA, fdB = 0.f;
+  unsigned fcA, fcB = 0u;
+  load(0, A, fdA, fcA);
+  for (int s0 = 0; s0 < n; s0 += 2 * K) {
+    if (s0 + K < n) load(s0 + K, B, fdB, fcB);
+    A.ready(s0 + K < n);
+    run(s0, A, fdA, fcA);
+    if (s0 + K >= n) break;
+    if (s0 + 2 * K < n) load(s0 + 2 * K, A, fdA, fcA);
+    B.ready(s0 + 2 * K < n);
+    run(s0 + K, B, fdB, fcB);
+  }
+}
+
 // One pass of one block of a sharded frame (pm_pass): the block owns frame
 // rows [a.row0, a.row0 + chunk) and is one y-strip of the frame. kAxis 1 is
-// a row pass over the block's rows in a.chunks_x x-strips, a work item a
-// block of threads, as in pm_match (kFold: the iteration's refresh, R+);
-// kAxis 0 a column pass of the block's strip (kFold: the mask, the last C-),
-// a thread a column. Its inputs and outputs are those of the pass in
-// pm_match, the fronts moved by the offsets of Match.
-template <typename T, int kAxis, bool kFold>
+// a row pass over the block's rows in a.chunks_x x-strips (kFold: the
+// iteration's refresh, R+); kAxis 0 a column pass of the block's strip
+// (kFold: the mask, the last C-). Its inputs and outputs are those of the
+// pass in pm_match, the fronts moved by the offsets of Match. NW > 0: a warp
+// walks a column, or a row of an x-strip, its lines NW * 128 bytes at most
+// (walk); NW = 0: a thread a column, and a row pass a block of kLanes rows a
+// strip (row_pass), as in pm_match.
+template <typename T, int kAxis, bool kFold, int NW>
 __global__ void __launch_bounds__(kThreads)
-pm_pass_kernel(Hwd<T> rvol, HwdFrom<T> cvol, Match<T> a, const float* disp_in, const T* cost_in,
-               float* disp_out, T* cost_out, float scale, bool forward, int strip) {
-  if constexpr (kAxis == 1) {
+pm_pass_kernel(Hwd<T> rvol, HwdFrom<T> cvol, Match<T> a, const float* __restrict__ disp_in,
+               const T* __restrict__ cost_in, float* __restrict__ disp_out,
+               T* __restrict__ cost_out, float scale, bool forward, int strip) {
+  if constexpr (NW > 0) {
+    constexpr int K = kWalkWords / NW;
+    const int wi = threadIdx.x / 32, warp = blockIdx.x * kWalkWarps + wi;
+    ScanLine sl;
+    sl.halo = a.halo;
+    if constexpr (kAxis == 1) {  // a row of an x-strip; the block's rows from rvol.C on
+      const int y = warp / a.chunks_x, c = warp % a.chunks_x;
+      if (y >= a.H) return;
+      sl.chunk = a.chunk_x;
+      sl.len = a.W;
+      sl.step = 1;
+      sl.vol = sl.front = sl.out = (long long)y * a.W;
+      sl.lane_ok = y + a.row0 >= a.pr && y + a.row0 <= a.rows - a.pr - 1;
+      sl.start = c * sl.chunk - a.halo;
+      sl.lim = 0.f;
+    } else {  // column x of strip strip, positions in frame rows
+      const int x = warp;
+      if (x >= a.W) return;
+      sl.chunk = a.chunk_y;
+      sl.len = a.H;
+      sl.step = a.W;
+      sl.vol = x - (long long)cvol.y0 * a.W;
+      sl.front = x - (long long)a.front_row0 * a.W;
+      sl.out = x - (long long)a.out_row0 * a.W;
+      sl.lane_ok = x >= a.pr && x <= a.W - a.pr - 1;
+      sl.start = strip * sl.chunk - a.halo;
+      sl.lim = (float)(x - a.pr);
+    }
+    sl.n = sl.chunk + 2 * a.halo;
+    sl.lo = max(sl.start, a.pr);
+    sl.hi = min(sl.start + sl.chunk + 2 * a.halo, sl.len - a.pr - 1);
+    const T* C = kAxis == 1 ? rvol.C : cvol.C;
+    __shared__ Step<T> info[kWalkWarps][K];
+    __shared__ __align__(16) unsigned ring[kWalkWarps][2][Lines<T, K, NW>::kWords];
+    Lines<T, K, NW> A{ring[wi][0]}, B{ring[wi][1]};
+    walk<T, kAxis, kFold, NW>(C, disp_in, cost_in, a.noise, disp_out, cost_out, sl, A, B,
+                              info[wi], a.D, a.pr, scale, a.improve, forward);
+  } else if constexpr (kAxis == 1) {
     __shared__ float td[kSegment][kLanes + 1];
     __shared__ __align__(4) unsigned char tc_raw[kSegment * (kLanes + 1) * sizeof(T)];
     const int row_blocks = (a.H + kLanes - 1) / kLanes;
@@ -499,6 +827,17 @@ pm_pass_kernel(Hwd<T> rvol, HwdFrom<T> cvol, Match<T> a, const float* disp_in, c
     const int x = blockIdx.x * kColumns + threadIdx.x;
     if (threadIdx.x >= kColumns || x >= a.W) return;
     col_pass<kFold>(cvol, a, disp_in, cost_in, disp_out, cost_out, disp_out, forward, x, strip);
+  }
+}
+
+// pm_pass_kernel for a pass and its line's words a lane (0: no walk).
+template <typename T, int kAxis, bool kFold>
+auto pass_kernel(int nw) {
+  switch (nw) {
+    case 1: return pm_pass_kernel<T, kAxis, kFold, 1>;
+    case 2: return pm_pass_kernel<T, kAxis, kFold, 2>;
+    case 4: return pm_pass_kernel<T, kAxis, kFold, 4>;
+    default: return pm_pass_kernel<T, kAxis, kFold, 0>;
   }
 }
 
@@ -584,19 +923,26 @@ int block_pass(const void* C, const void* disp_in, const void* cost_in, const vo
   const HwdFrom<T> cvol{(const T*)C, W, D, vol_row0};
   const float* din = (const float*)disp_in;
   const T* cin = (const T*)cost_in;
+  // A walk copies its lines in 16-byte pieces, NW * 128 bytes at most.
+  const int line = D * (int)sizeof(T);
+  const int nw = line % 16 != 0 || (uintptr_t)C % 16 != 0 ? 0
+                 : line <= 128 ? 1 : line <= 256 ? 2 : line <= 512 ? 4 : 0;
+  const bool walks = nw > 0 && (axis == 0 || kWalkRows != 0);
   int blocks;
   if (axis == 1) {
     a.H = chunk;
     din += (long long)(row0 - front_row0) * W;
     cin += (long long)(row0 - front_row0) * W;
-    blocks = (chunk + kLanes - 1) / kLanes * chunks_x;
+    blocks = walks ? (chunk * chunks_x + kWalkWarps - 1) / kWalkWarps
+                   : (chunk + kLanes - 1) / kLanes * chunks_x;
   } else {
-    blocks = (W + kColumns - 1) / kColumns;
+    blocks = walks ? (W + kWalkWarps - 1) / kWalkWarps : (W + kColumns - 1) / kColumns;
   }
-  const auto kernel = axis == 1 ? (fold ? pm_pass_kernel<T, 1, true> : pm_pass_kernel<T, 1, false>)
-                                : (fold ? pm_pass_kernel<T, 0, true> : pm_pass_kernel<T, 0, false>);
-  kernel<<<blocks, kThreads, 0, s>>>(rvol, cvol, a, din, cin, (float*)disp_out, (T*)cost_out,
-                                     scale, forward != 0, row0 / chunk);
+  const int k = walks ? nw : 0;
+  const auto kernel = axis == 1 ? (fold ? pass_kernel<T, 1, true>(k) : pass_kernel<T, 1, false>(k))
+                                : (fold ? pass_kernel<T, 0, true>(k) : pass_kernel<T, 0, false>(k));
+  kernel<<<blocks, walks ? 32 * kWalkWarps : kThreads, 0, s>>>(
+      rvol, cvol, a, din, cin, (float*)disp_out, (T*)cost_out, scale, forward != 0, row0 / chunk);
   return (int)cudaGetLastError();
 }
 

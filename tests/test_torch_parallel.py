@@ -8,7 +8,10 @@ eight devices on one CPU.
   test_torch_engines.py. A block whose work runs late changes nothing.
 - ``pm_pass``'s plain twin over one block that is the whole frame equals
   the whole frame's pass pieces (``_propagate_plain``, the refresh, the
-  mask), and the kernel wrapper takes CUDA tensors only.
+  mask), and the kernel wrapper takes CUDA tensors only. The adversarial
+  block inputs the card's test uses (``chip_smoke.adversarial_seed`` and
+  ``tie_volume``) make the twin's compares tie, its lookups clamp and round
+  halves, and its mask both keep and zero pixels.
 - ``sharded_enhance`` and ``sharded_perception_step`` equal the unsplit
   enhancement and ``perception_step`` with ``chunks_y = N`` bit for bit:
   disparity, depth and the enhanced image (a tighter bound than the
@@ -154,9 +157,33 @@ def test_more_blocks_than_cores_under_a_short_switch_interval():
 
 def _fronts(C, p, seed=3):
     rng = np.random.default_rng(seed)
-    disp = torch.from_numpy(rng.uniform(0, D, C.shape[:2]).astype(np.float32))
-    cost = tpm._full_cost_map(C, disp, p.patch_radius)
-    return disp, cost
+    disp = torch.from_numpy(rng.uniform(0, C.shape[2], C.shape[:2]).astype(np.float32))
+    cost = tpm._full_cost_map(C, disp.to(C.device), p.patch_radius)
+    return disp.to(C.device), cost
+
+
+def _pass_inputs(C, p, inputs):
+    """(volume, disparity and cost fronts, noise) of a frame: the path's
+    volume with random fronts ("path"), with chip_smoke.adversarial_seed's
+    fronts and noise ("adversarial seed"), or a chip_smoke.tie_volume of the
+    volume's shape with those ("tie volume"). Each front cost is the
+    volume's at its disparity, as after any pass."""
+    import chip_smoke as cs
+
+    if inputs == "path":
+        return (C, *_fronts(C, p), tpm.unit_noise(C.shape[:2], p.noise_seed, C.device))
+    if inputs == "tie volume":
+        C = cs.tie_volume(tuple(C.shape), C.dtype, C.device)
+    disp, noise = cs.adversarial_seed(tuple(C.shape[:2]), C.shape[2], C.device)
+    return C, disp, tpm._full_cost_map(C, disp, p.patch_radius), noise
+
+
+def _every_block_pass(Hf, n):
+    """(block, direction, axis, fold) of every pass kind of every block of a
+    frame of Hf rows in n blocks, the block's fronts and volume the frame's."""
+    chunk = Hf // n
+    return [(tpm.BlockRows(i * chunk, chunk, Hf, 0, 0), direction, axis, fold)
+            for i in range(n) for direction, axis in tpm.PASSES for fold in (False, True)]
 
 
 @pytest.mark.parametrize("direction,axis", tpm.PASSES, ids=["R+", "C+", "R-", "C-"])
@@ -176,6 +203,48 @@ def test_block_pass_twin_of_one_block_is_the_frame_pass(pair, direction, axis):
             ref = (tpm._mask_with_cost(C, *ref, p), None)
         assert torch.equal(ours[0], ref[0]) and (ours[1] is None) == (ref[1] is None)
         assert ours[1] is None or torch.equal(ours[1], ref[1])
+
+
+class _TwinEvents(torch.overrides.TorchFunctionMode):
+    """Counts, over the plain passes run under it, the cost compares that
+    meet equal costs and the lookups that clamp or round a half."""
+
+    def __init__(self, D_):
+        super().__init__()
+        self.D = D_
+        self.ties = self.clamped = self.halves = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.Tensor.lt, torch.Tensor.__lt__) and isinstance(args[1], torch.Tensor):
+            self.ties += int((args[0] == args[1]).sum())
+        if func is torch.round:
+            d = args[0]
+            self.clamped += int(((d < 0) | (d > self.D - 1)).sum())
+            self.halves += int((d - d.floor() == 0.5).sum())
+        return func(*args, **kwargs)
+
+
+@pytest.mark.parametrize("inputs", ["adversarial seed", "tie volume"])
+def test_adversarial_block_inputs_tie_clamp_and_fire_the_mask(pair, inputs):
+    """The card's test holds pm_pass to its twin on these inputs: through
+    the twin their cost compares meet equal costs, their lookups clamp and
+    round halves, and the last C-'s mask keeps some pixels and zeroes
+    others."""
+    p = dataclasses.replace(PM, volume_bf16=True)
+    C, disp, cost, noise = _pass_inputs(cost_volume(*pair, D, dtype=torch.bfloat16), p, inputs)
+    events, kept, zeroed = _TwinEvents(D), 0, 0
+    with events:
+        for block, direction, axis, fold in _every_block_pass(H, 2):
+            rows = slice(block.row0, block.row0 + block.chunk)
+            args = (C, disp, cost, noise[rows], direction, axis, fold, block, p, 8.0)
+            out = tpm._block_pass_plain(*args)
+            if axis == 0 and fold:
+                unmasked = tpm._block_pass_plain(*args[:6], False, *args[7:])[0]
+                kept += int((out[0] > 0).sum())
+                zeroed += int(((out[0] == 0) & (unmasked > 0)).sum())
+    assert events.ties > 0 and events.clamped > 0 and events.halves > 0, vars(events)
+    assert kept > 0 and zeroed > 0, (kept, zeroed)
 
 
 def test_unit_noise_rows_are_the_whole_images_rows():
@@ -311,33 +380,39 @@ def test_profiling_names_regions_and_times_them(tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("W_", [96, 100], ids=["W96", "W100"])
+@pytest.mark.parametrize("D_", [24, 64, 128], ids=["D24", "D64", "D128"])
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
-def test_pm_pass_kernel_equals_its_twin_on_the_card(pair, bf16):
-    """Every pass of every block of a 2- and a 4-block frame, on the card
-    against its twin there, bit for bit, then the sharded match against
-    pm_match with chunks_y = N."""
+def test_pm_pass_kernel_equals_its_twin_on_the_card(bf16, D_, W_):
+    """Every pass kind of every block of a 2- and a 4-block frame, on the
+    card against its twin there, bit for bit (chip_smoke.same_bits), on the
+    path's volume with random fronts, on the adversarial seed and on the tie
+    volume; D of 24, 64 and 128 (lines of 1, 2 and 4 words a lane), W a
+    multiple of 32 and not; then the sharded match against pm_match with
+    chunks_y = N."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels cannot run on the CPU")
+    from chip_smoke import same_bits
+
     dev = torch.device("cuda", 0)
-    p = dataclasses.replace(PM, volume_bf16=bf16)
-    l, r = (x.to(dev) for x in pair)
-    C = cost_volume(l, r, D, dtype=torch.bfloat16 if bf16 else torch.float32)
-    disp, cost = _fronts(C.cpu(), p)
-    disp, cost = disp.to(dev), cost.to(dev).to(C.dtype)
-    noise = tpm.unit_noise((H, W), p.noise_seed, dev)
+    p = dataclasses.replace(PM, volume_bf16=bf16, max_disp=D_)
+    rng = np.random.default_rng(7)
+    canvas = gaussian_blur(torch.from_numpy(rng.random((H, W_ + 48)).astype(np.float32)), 1.1)
+    l, r = (canvas[:, a:a + W_].contiguous().to(dev) for a in (16, 22))
+    C = cost_volume(l, r, D_, dtype=torch.bfloat16 if bf16 else torch.float32)
+    for inputs in ("path", "adversarial seed", "tie volume"):
+        vol, disp, cost, noise = _pass_inputs(C, p, inputs)
+        for n in (2, 4):
+            for block, direction, axis, fold in _every_block_pass(H, n):
+                rows = slice(block.row0, block.row0 + block.chunk)
+                args = (vol, disp, cost, noise[rows], direction, axis, fold, block, p, 4.0)
+                ours = tpm.block_pass(*args)
+                ref = tpm._block_pass_plain(*args)
+                tag = (inputs, n, block.row0, direction, axis, fold)
+                assert same_bits(ours[0], ref[0]), tag
+                assert (ours[1] is None) == (ref[1] is None), tag
+                assert ours[1] is None or same_bits(ours[1], ref[1]), tag
     for n in (2, 4):
-        chunk = H // n
-        for i in range(n):
-            row0 = i * chunk
-            for direction, axis in tpm.PASSES:
-                for fold in (False, True):
-                    block = tpm.BlockRows(row0, chunk, H, 0, 0)
-                    args = (C, disp, cost, noise[row0:row0 + chunk], direction, axis, fold,
-                            block, p, 4.0)
-                    ours = tpm.block_pass(*args)
-                    ref = tpm._block_pass_plain(*args)
-                    assert torch.equal(ours[0], ref[0]), (n, i, direction, axis, fold)
-                    assert ours[1] is None or torch.equal(ours[1], ref[1])
         cuda.reset_launches()
         ours = sharded_patchmatch(l, r, make_mesh(axis_names=("strip",), devices=[dev] * n), p)
         assert cuda.LAUNCHES["pm_pass"] == 4 * p.iters * n and cuda.LAUNCHES["pm_match"] == 0

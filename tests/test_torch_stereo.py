@@ -12,6 +12,10 @@ Tolerances:
   test_pallas_propagate_bit_identical holds equal to the TPU's propagation
   kernel and test_pallas_fused_bit_identical to its fused match kernel.
 - subpixel_refine: <= 1e-6 (float32 parabola arithmetic).
+- The port's PatchMatch against the faithful numpy re-derivation of the
+  CUDA algorithm (ocean_perception_tpu/stereo/oracle.py), with
+  tests/test_stereo.py's scene, seed, noise and bounds: integer cost
+  lookups bound the difference.
 """
 
 import jax
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 from ocean_perception_tpu.stereo import cost as jcost
+from ocean_perception_tpu.stereo import oracle
 from ocean_perception_tpu.stereo import patchmatch as jpm
 from ocean_perception_tpu.ops import image as jimg
 from ocean_perception_tpu_torch.stereo import api as tapi
@@ -260,6 +265,26 @@ def test_patchmatch_disparity_bit_exact(pair, extra):
         np.testing.assert_array_equal(getattr(ours, field).numpy(), np.asarray(getattr(ref, field)),
                                       err_msg=field)
     assert (np.asarray(ref.left) > 0).mean() > 0.1
+
+
+def test_patchmatch_matches_oracle():
+    """tests/test_stereo.py::test_patchmatch_matches_oracle on the port: the
+    one-device engine's raw left map against patchmatch_oracle on the same
+    scene, confident-WTA seed and fixed noise."""
+    from test_stereo import D as D_S, make_scene
+
+    left, right, _ = make_scene(np.random.default_rng(3))
+    p = tpm.PatchMatchParams(max_disp=D_S, chunks=4, iters=2, subpixel=False, improve_factor=0.8)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    seed = tpm.sparse_wta_seed(tcost.cost_volume(lt, rt, D_S, p.alpha), p)
+    noise = tpm.unit_noise(left.shape, p.noise_seed)
+    ours = tpm.patchmatch_disparity(lt, rt, p, seed_left=seed).left_raw.numpy()
+    ref = oracle.patchmatch_oracle(left, right, seed.numpy(), iters=2, alpha=p.alpha,
+                                   improve_factor=0.8, noise=noise.numpy())
+    both_valid = (ours > 0) & (ref > 0)
+    assert both_valid.mean() > 0.2
+    assert float(np.median(np.abs(ours - ref)[both_valid])) < 1.0
+    assert ((ours > 0) == (ref > 0)).mean() > 0.8
 
 
 def test_effective_chunks_and_layout():
