@@ -15,18 +15,32 @@ disparity and motion, in phases:
    bf16 and float32, on the path's seed and on an adversarial seed whose
    lookups tie and clamp and whose mask fires), with their times, bounds
    and the match's chain of dependent round trips (below); then the
-   Sea-thru fits' LM kernels, ``lm_solve_small`` (the damped normal
-   equations and their solve, a block a system) and ``lm_row_sum`` (the
-   error sums), against their twins on the first launch of each shape of one
-   perception step (bit-identical), with their times, bounds and the time of
+   Sea-thru fit kernel ``sea_thru_fit`` (a whole LM fit a block, one launch
+   a fit) on the two fits of one perception step: x, error, lambda and the
+   accepted steps equal bit for bit to its plain version run on the card
+   (the fits' loop, ``ops/lm.py::lm_solve``, with the LM kernels' twins: no
+   kernel of the port) and to that loop with ``lm_solve_small`` and
+   ``lm_row_sum`` (``require_same_fit``; each camera of a batch alone as in
+   its batch too), with its times, the loop's call times, its bound and its
+   chain of dependent operations (``fit_bound``, ``fit_chain``), and on the
+   adversarial fits of ``fit_adversarial`` (no valid sample, a sample at
+   z = inf, zero ranges, a start far off, a start whose model overflows);
+   then the LM kernels, ``lm_solve_small`` (the damped normal equations and
+   their solve, a block a system) and ``lm_row_sum`` (the error sums), which
+   the step no longer launches, on the same fits run by their loop with the
+   kernels (``record_fit_loops``): against their twins on the first launch
+   of each shape (bit-identical), with their times, bounds and the time of
    one PyTorch call of the same function (``torch.linalg.solve_ex`` on the
    damped systems, ``torch.sum``); ``lm_solve_small`` also on an adversarial
    batch (``lm_adversarial``: a pivot tie, a zero column, a NaN, columns
    over 10^8) at each of those shapes, bit for bit with its NaNs in the same
    places, and with its chain of dependent operations beside its bound;
 4. ``perception_step`` end to end: three runs of 8 frames, checking the
-   kernels' launch counts, finite outputs and the disparity against the
-   scene's truth; its host syncs a frame (there must be none); then the
+   kernels' launch counts (``sea_thru_fit`` twice a frame), finite outputs
+   and the disparity against the scene's truth, and every fit of the 8
+   frames held to its plain version and the LM kernels' loop as in phase 3
+   (``check_fits``; phase 7 the same); its host syncs a frame (there must be
+   none); then the
    whole step captured in one CUDA graph and replayed over the 8 frames
    (ms/frame beside the call path's, and the match's share of the graph
    frame; its disparity equal to the call path's); then the call time of
@@ -75,7 +89,9 @@ disparity and motion, in phases:
    every camera's disparity and depth must equal the one-camera step's on
    that frame bit for bit and whose enhanced image must stay within the
    enhance tolerance (below), with each kernel launched once a call, no
-   host sync, and its CUDA graph's replay equal to the call path; ms per
+   host sync, every fit held as in phase 4 (and ``sea_thru_fit`` at B=4
+   checked and timed as in phase 3 on the (H, W, D) configuration's fits),
+   and its CUDA graph's replay equal to the call path; ms per
    call by calls and by graph beside the one-camera graph frame, fps per
    GPU, the CUDA kernels a call runs at one camera and at N_CAMERAS
    (``torch.profiler``, with the kernels whose count differs between the
@@ -99,8 +115,10 @@ disparity and motion, in phases:
    memory, and the call times of a call and of its dense and mesher
    halves, at one camera and at N_CAMERAS. Each camera's enhanced image is
    held to its one-camera call's at every timed call within the enhance
-   tolerance (below; the run prints where it is bit-identical), and the LM
-   kernels are checked and timed at the fleet's shapes as in phase 3;
+   tolerance (below; the run prints where it is bit-identical);
+   ``sea_thru_fit`` and the LM kernels are checked and timed at the fleet's
+   shapes as in phase 3, and every fit of the 8 timed calls is held as in
+   phase 4;
 14. the farm perception node (``fabric/nodes/farm_perception_node.py``)
    over an ``InProcessBus``: (a) built by ``from_config`` from the shipped
    ``config/nodes/FarmPerceptionNode.yaml`` and ``config/shared/Farmsim.yaml``
@@ -191,9 +209,10 @@ disparity and motion, in phases:
    maps equal bit for bit to the
    one-device engine with ``chunks_y = N``, ``cost_volume`` N and
    ``pm_pass`` 12 N launches; ``sharded_perception_step`` (the main path
-   of this phase: launches ``cost_volume`` N, ``pm_pass`` 12 N, the LM
-   kernels an enhancement's, ``pm_match`` none) with its disparity and
-   depth equal bit for bit to ``perception_step`` with ``chunks_y = N``
+   of this phase: launches ``cost_volume`` N, ``pm_pass`` 12 N,
+   ``sea_thru_fit`` 2, ``pm_match`` none; every fit held as in phase 4)
+   with its disparity and depth equal bit for bit to ``perception_step``
+   with ``chunks_y = N``
    and its enhanced image within the enhance tolerance (below);
    ``pm_pass``'s device time a launch by kind of pass (profiler, through
    ``utils/profiling.trace``, whose trace also names each block's work)
@@ -234,9 +253,13 @@ and ``lk_track`` also their chains of dependent operations (the match's in
 units of the chase's latency in this run). ``lk_track``'s row also carries,
 under ``vio``, its launches, times and bound on the state estimator's path
 (phase 16), and under ``vio_node`` its launches on the node's (phase 17);
-the LM kernels' rows carry, under ``trilaterate``, their float64 and
-float32 launches, times and bounds there (operations at 34 TFLOP/s for
-float64, the H100 SXM's rate outside the tensor cores).
+the LM kernels' launches are trilaterate's in float64 (phase 17 (e), their
+path since the step's fits are one launch each), and their rows carry,
+under ``trilaterate``, their float64 and float32 launches, times and bounds
+there (operations at 34 TFLOP/s for float64, the H100 SXM's rate outside
+the tensor cores); ``sea_thru_fit``'s row carries its shapes under
+``fits``, its row at B=4 under ``batched`` and the fleet's under
+``fleet``.
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
@@ -275,7 +298,10 @@ from ocean_perception_tpu_torch.fabric.messages import (DepthMessage, ImageMessa
 from ocean_perception_tpu_torch.fabric.nodes import farm_perception_node as fpn
 from ocean_perception_tpu_torch.fabric.nodes import object_mesher_node as omn
 from ocean_perception_tpu_torch.fabric.pubsub import InProcessBus
+from ocean_perception_tpu_torch.imaging.attenuation import beta_config, beta_lm_plain
+from ocean_perception_tpu_torch.imaging.backscatter import backscatter_config, backscatter_lm_plain
 from ocean_perception_tpu_torch.imaging.enhance import EnhanceParams, enhance_underwater
+from ocean_perception_tpu_torch.imaging.formation import backscatter_start, beta_guesses
 from ocean_perception_tpu_torch.mesher.landmark_graph import LandmarkGraph
 from ocean_perception_tpu_torch.mesher.object_mesher import (ObjectMesher, ObjectMesherDeviceParams,
                                                            build_meshes)
@@ -311,12 +337,15 @@ N_TIMED = 20
 N_RUNS = 3  # timed runs of N_FRAMES frames of each perception layout
 # Host syncs a full_frontend_step frame keeps (PERF.md, section 5).
 FRONTEND_SYNCS = 0
-# Launches of the Sea-thru LM kernels an enhanced frame (a batch of cameras
-# too): a step each iteration of the two fits, and the error sums, two at
-# each fit's start (lambda's diagonal and the start error) and one an
-# iteration.
+# Launches of the Sea-thru fit kernel an enhanced frame (a batch of cameras
+# too): the backscatter fit and the attenuation multi-start, one each.
+PER_ENHANCE = {"sea_thru_fit": 2}
+# Launches of the LM kernels on the fits' plain version with its kernels
+# (fits_by_loop): a step each iteration of the two fits, and the error
+# sums, two at each fit's start (lambda's diagonal and the start error) and
+# one an iteration.
 _ITERS = EnhanceParams().back_opt_iters + EnhanceParams().beta_opt_iters
-PER_ENHANCE = {"lm_solve_small": _ITERS, "lm_row_sum": _ITERS + 4}
+PER_ENHANCE_LOOP = {"lm_solve_small": _ITERS, "lm_row_sum": _ITERS + 4}
 # Launches of each kernel per frame of each path.
 PER_FRAME = {"cost_volume": 1, "pm_match": 1, **PER_ENHANCE}
 PER_STRIP_FRAME = {"build_volumes": 1, "pm_match_strip": 1, **PER_ENHANCE}
@@ -345,6 +374,8 @@ SOURCES = {
                        "ocean_perception_tpu/ops/lm.py:84-89)"),
     "lm_row_sum": ("ocean_perception_tpu_torch/csrc/lm_solve.cu",
                    "none (XLA's jnp.sum, ocean_perception_tpu/ops/lm.py:44)"),
+    "sea_thru_fit": ("ocean_perception_tpu_torch/csrc/sea_thru_fit.cu",
+                     "none (XLA's fori_loop LM, ocean_perception_tpu/ops/lm.py:48-106)"),
 }
 # H100 SXM peaks (NVIDIA's data sheet): memory rate, and the float32 and
 # float64 rates outside the tensor cores.
@@ -447,7 +478,7 @@ def call_ms(fn, n: int = N_TIMED) -> float:
 
 
 KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|pm_pass|lk_track|lm_solve_small|"
-                       r"lm_row_sum)_kernel")
+                       r"lm_row_sum|sea_thru_fit)_kernel")
 
 
 def launch_name(kernel: str) -> str | None:
@@ -861,6 +892,8 @@ def phase_end_to_end(left_rgb, right_rgb, rig, config, tag="e2e",
         runs.append(start.elapsed_time(end) / N_FRAMES)
         require_launches(tag, launches, per_frame, N_FRAMES)
 
+    check_fits(tag, record_fit_calls(
+        lambda: [perception_step(f, right_rgb, rig, config, device=dev) for f in frames]))
     for i, out in enumerate(outs):
         for field, t in out._asdict().items():
             if not torch.isfinite(t).all():
@@ -1719,6 +1752,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     host's and the card's NaNs differ in sign and payload)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
     na, nb = torch.isnan(a), torch.isnan(b)
     ints = {torch.float32: torch.int32, torch.float64: torch.int64,
             torch.bfloat16: torch.int16}[a.dtype]
@@ -1816,6 +1851,275 @@ def phase_lm_kernels(calls: dict, tag: str = "") -> dict:
     return rows
 
 
+# The plain version of sea_thru_fit for each model, with the wrapper's
+# arguments after the model.
+FIT_PLAIN = {"backscatter": backscatter_lm_plain, "attenuation": beta_lm_plain}
+FIT_CONFIG = {"backscatter": backscatter_config, "attenuation": beta_config}
+# Operations of one sample of each model (csrc/sea_thru_fit.cu, an exp or a
+# log one operation): its weighted residual and Jacobian row, and its error
+# leaf; and the longest chains of dependent operations through each.
+FIT_SAMPLE_OPS = {"backscatter": (85, 39), "attenuation": (94, 42)}
+FIT_SAMPLE_CHAIN = {"backscatter": (15, 11), "attenuation": (16, 12)}
+
+
+def record_fit_calls(fn) -> list:
+    """Run fn() and return the arguments of every sea_thru_fit launch it
+    made, cloned: (model, colour, z, valid, x0, config)."""
+    calls, wrapper = [], cuda.sea_thru_fit
+
+    def launch(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return wrapper(*args)
+
+    cuda.sea_thru_fit = launch
+    try:
+        fn()
+    finally:
+        cuda.sea_thru_fit = wrapper
+    return calls
+
+
+@contextlib.contextmanager
+def fits_by_loop(kernels: bool = True):
+    """Inside, every Sea-thru fit runs its plain version (the loop of
+    ops/lm.py::lm_solve) instead of sea_thru_fit: its steps and error sums
+    by lm_solve_small and lm_row_sum (the path before the fit was one
+    launch), or, kernels=False, by their twins."""
+    wrapper = cuda.sea_thru_fit
+    cuda.sea_thru_fit = lambda model, *args: FIT_PLAIN[model](*args, kernels=kernels)
+    try:
+        yield
+    finally:
+        cuda.sea_thru_fit = wrapper
+
+
+def run_fit_loops(calls: list) -> None:
+    """Each recorded fit by its plain version with the LM kernels."""
+    for model, *args in calls:
+        FIT_PLAIN[model](*args, kernels=True)
+
+
+def record_fit_loops(calls: list, tag: str) -> dict:
+    """record_lm_calls over one step's recorded fits run by their loop with
+    the LM kernels (run_fit_loops), which must launch PER_ENHANCE_LOOP."""
+    lm_calls = record_lm_calls(lambda: run_fit_loops(calls))
+    got = {k: len(v) for k, v in lm_calls.items()}
+    if got != PER_ENHANCE_LOOP:
+        raise AssertionError(f"{tag}: the fits' loop launched {got}, expected {PER_ENHANCE_LOOP}")
+    return lm_calls
+
+
+def fit_routes(call: tuple) -> dict:
+    """A recorded fit three ways: sea_thru_fit, its plain version on the
+    card (the LM kernels' twins: no kernel of the port), and the plain
+    version with lm_solve_small and lm_row_sum."""
+    model, *args = call
+    return {"sea_thru_fit": cuda.sea_thru_fit(model, *args),
+            "plain": FIT_PLAIN[model](*args, kernels=False),
+            "lm kernels": FIT_PLAIN[model](*args, kernels=True)}
+
+
+def fit_tag(call: tuple) -> str:
+    model, colour, z, valid, x0, config = call
+    return (f"{model} N={z.shape[-1]} fits {tuple(z.shape[:-1]) + tuple(x0.shape[z.ndim - 1:-1])} "
+            f"{config.max_iters} iterations")
+
+
+def require_same_fit(tag: str, call: tuple) -> dict:
+    """sea_thru_fit equal to its plain version and to the LM kernels' path
+    in x, error, lambda and the accepted steps, bit for bit (NaNs in the
+    same places); and, for a batch of cameras, each camera's fit alone
+    equal to its fit in the batch. Returns the three results."""
+    routes = fit_routes(call)
+    got = routes["sea_thru_fit"]
+    for name in ("plain", "lm kernels"):
+        for field in got._fields:
+            a, b = getattr(got, field), getattr(routes[name], field)
+            if not same_bits(a, b):
+                raise AssertionError(f"{tag} ({fit_tag(call)}): sea_thru_fit's {field} differs "
+                                     f"from the {name} path's (max |diff| {max_abs(a, b)})")
+    model, colour, z, valid, x0, config = call
+    if z.ndim > 1:
+        per_cam = x0.ndim > (1 if model == "backscatter" else 2)
+        for b in range(z.shape[0]):
+            one = cuda.sea_thru_fit(model, colour[b], z[b], valid[b], x0[b] if per_cam else x0,
+                                    config)
+            for field in got._fields:
+                if not same_bits(getattr(one, field), getattr(got, field)[b]):
+                    raise AssertionError(f"{tag} ({fit_tag(call)}): camera {b}'s fit alone "
+                                         f"differs from the batch's in {field}")
+    return routes
+
+
+def check_fits(tag: str, calls: list) -> None:
+    """require_same_fit on every recorded fit."""
+    if not calls:
+        raise AssertionError(f"{tag}: no Sea-thru fit was recorded")
+    for call in calls:
+        require_same_fit(tag, call)
+    acc = [int(cuda.sea_thru_fit(*call).n_accepted.sum()) for call in calls]
+    shapes = ", ".join(sorted({fit_tag(c) for c in calls}))
+    print(f"[sea_thru_fit {tag}] {len(calls)} fits ({shapes}): "
+          f"x, error, lambda and accepted steps bit-identical to the plain version on the card "
+          f"and to the lm_solve_small + lm_row_sum path, each camera alone as in its batch; "
+          f"accepted steps {acc}")
+
+
+def fit_samples(model: str, B: int, N: int, device, seed: int = 0):
+    """B cameras of unlike water, N samples each, drawn from the model with
+    1% noise, a tenth of them invalid: (colour, z, valid), float32."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(0.5, 8.0, (B, N, 1))
+    if model == "backscatter":
+        Bc, beta_b = rng.uniform(0.03, 0.2, (B, 1, 3)), rng.uniform(0.3, 1.5, (B, 1, 3))
+        Jp, beta_d = rng.uniform(0.01, 0.1, (B, 1, 3)), rng.uniform(0.5, 1.5, (B, 1, 3))
+        colour = Bc * (1 - np.exp(-beta_b * z)) + Jp * np.exp(-beta_d * z)
+    else:
+        a, c = rng.uniform(0.2, 1.2, (B, 1, 3)), rng.uniform(0.5, 3.0, (B, 1, 3))
+        b, d = rng.uniform(-0.4, 0.0, (B, 1, 3)), rng.uniform(-2.5, -1.0, (B, 1, 3))
+        colour = np.exp(-(a * np.exp(b * z) + c * np.exp(d * z)) * z)
+    colour = colour * (1 + 0.01 * rng.normal(size=colour.shape))
+    valid = rng.random((B, N)) < 0.9
+    return (torch.as_tensor(colour, dtype=torch.float32, device=device),
+            torch.as_tensor(z[..., 0], dtype=torch.float32, device=device),
+            torch.as_tensor(valid, device=device))
+
+
+def fit_start(model: str, device, G: int = 2) -> torch.Tensor:
+    """The enhancement's starts: the D5 defaults, or G of the beta guesses
+    (a third the mean of the two)."""
+    if model == "backscatter":
+        return backscatter_start(device)
+    guesses = beta_guesses(device)
+    return torch.cat([guesses, guesses.mean(0, keepdim=True)])[:G].contiguous()
+
+
+def fit_adversarial(N: int, device, seed: int = 13) -> list:
+    """(tag, call) fits of each model, one camera, on which the kernel's
+    corner cases show: no valid sample (a zero system, so every step is not
+    finite and zeroed); a valid sample at z = inf (NaNs in J, so every step
+    is zeroed); a quarter of the ranges 0, valid (signed zeros in J); a
+    start 10^4 times the model's (steps far from the data); and a start
+    whose model overflows (an infinite error and lambda NaN from the
+    start)."""
+    out = []
+    for model in FIT_PLAIN:
+        colour, z, valid = (t[0] for t in fit_samples(model, 1, N, device, seed))
+        x0 = fit_start(model, device)
+        config = FIT_CONFIG[model]()
+        cases = {"no valid sample": (colour, z, torch.zeros_like(valid), x0)}
+        z_inf = z.clone()
+        z_inf[3] = float("inf")
+        cases["a sample at z = inf"] = (colour, z_inf, torch.ones_like(valid), x0)
+        z_zero = z.clone()
+        z_zero[:N // 4] = 0.0
+        cases["zero ranges"] = (colour, z_zero, torch.ones_like(valid), x0)
+        cases["a start 10^4 times the model's"] = (colour, z, valid, x0 * 1e4)
+        blow = x0.clone()
+        if model == "backscatter":
+            blow[9:12] = -60.0  # exp(60 z) overflows
+        else:
+            blow[..., 0:3] = 1e30  # beta * beta overflows
+        cases["a start whose model overflows"] = (colour, z, valid, blow)
+        out += [(f"{model}: {tag}", (model, *args, config)) for tag, args in cases.items()]
+    return out
+
+
+def fit_bound(call: tuple, result) -> dict:
+    """Bound of one sea_thru_fit launch: its samples read once (the colour
+    triple, z and valid a camera's sample), its starts and results written
+    once, and the operations this run's fits needed at 67 TFLOP/s: the
+    residual and Jacobian of every sample and the normal equations'
+    P(P+1)/2 + P dot products at the start and after each accepted step,
+    every iteration's solve (the damping, the elimination and the back
+    substitution) and every error (the start's and one an iteration), each
+    a sample's leaf and the tree."""
+    model, colour, z, valid, x0, config = call
+    N, P = z.shape[-1], 12
+    fits, cams = result.error.numel(), z.numel() // N
+    nbytes = cams * N * (4 * 3 + 4 + 1) + 4 * x0.numel() + fits * 4 * (P + 3)
+    res_ops, err_ops = FIT_SAMPLE_OPS[model]
+    solve = 2 * P * P + sum((P - k - 1) * (3 + 2 * (P - k - 1)) for k in range(P)) + P * P
+    normal = N * res_ops + 2 * N * (P * (P + 1) // 2 + P)
+    iters = config.max_iters
+    ops = (float(result.n_accepted.sum()) + fits) * normal \
+        + fits * (iters * solve + (iters + 1) * (N * err_ops + N))
+    return bound(nbytes, ops)
+
+
+def fit_chain(call: tuple, result) -> dict:
+    """The longest chain of dependent operations of the fit that accepted
+    the most steps, each at OP_CYCLES: the normal equations (a sample's
+    residual and Jacobian, a product and the tree's levels) at the start and
+    after each accepted step; every iteration's solve (lm_chain without its
+    tree), step (a product, a sum and the projection), error (a sample's
+    leaf, the tree's levels and the quotient) and acceptance (a comparison
+    and lambda's product and clamp); and the start's error."""
+    model, colour, z, valid, x0, config = call
+    N = z.shape[-1]
+    levels = max(N - 1, 0).bit_length()
+    res_chain, err_chain = FIT_SAMPLE_CHAIN[model]
+    normal = res_chain + 1 + levels
+    solve = lm_chain(N, 12)["chain_ops"] - 1 - levels
+    error = err_chain + levels + 1
+    iters = config.max_iters
+    ops = (int(result.n_accepted.max()) + 1) * normal + iters * (solve + 3 + error + 3) + error
+    return dict(chain_ops=ops, chain_ms=1e3 * ops * OP_CYCLES / CLOCK_HZ)
+
+
+def phase_fit_kernel(calls: list, tag: str = "") -> dict:
+    """sea_thru_fit on the first recorded fit of each model and shape:
+    equal to its plain version and to the LM kernels' path
+    (require_same_fit), its device time (profiler, graph replay), call
+    time, the plain version's and the LM kernels' path's call times, its
+    bound and chain; with tag "" also the adversarial fits
+    (fit_adversarial). Returns sea_thru_fit's row: the means over the
+    shapes, each shape under "fits"."""
+    first = {}
+    for call in calls:
+        first.setdefault(fit_tag(call), call)
+    measured, bounds, shapes, errs = [], [], [], []
+    for name, call in first.items():
+        routes = require_same_fit(f"sea_thru_fit{tag}", call)
+        errs.append(max(max_abs(routes["sea_thru_fit"].x, routes["plain"].x),
+                        max_abs(routes["sea_thru_fit"].error, routes["plain"].error)))
+        model, *args = call
+        kernel = lambda c=call: cuda.sea_thru_fit(*c)
+        plain = lambda m=model, a=args: FIT_PLAIN[m](*a, kernels=False)
+        t = measure("sea_thru_fit", kernel, plain, 3)
+        t["lm_kernels_ms"] = call_ms(lambda m=model, a=args: FIT_PLAIN[m](*a, kernels=True), 3)
+        bd = fit_bound(call, routes["sea_thru_fit"])
+        ch = fit_chain(call, routes["sea_thru_fit"])
+        acc = routes["sea_thru_fit"].n_accepted.flatten().tolist()
+        measured.append(t)
+        bounds.append(bd)
+        shapes.append(dict(fit=name, accepted=acc, **t, **bd, **ch))
+        print(f"[sea_thru_fit{tag}] {name}: {times_line(t)}; the loop with lm_solve_small and "
+              f"lm_row_sum {t['lm_kernels_ms']:.4f} ms a call; bound {1e3 * bd['bound_ms']:.4f} us "
+              f"({bd['bound_by']}), chain {ch['chain_ops']} operations "
+              f"{1e3 * ch['chain_ms']:.4f} us; accepted steps {acc}; x, error, lambda and "
+              f"accepted steps bit-identical to the plain version and to the LM kernels' path")
+    if tag == "":
+        N = calls[0][2].shape[-1]
+        for name, call in fit_adversarial(N, calls[0][2].device):
+            routes = require_same_fit(f"sea_thru_fit adversarial, {name}", call)
+            r = routes["sea_thru_fit"]
+            print(f"[sea_thru_fit adversarial] {name} (N={N}): bit-identical to the plain "
+                  f"version and the LM kernels' path; error {r.error.flatten().tolist()}, lambda "
+                  f"{r.lambda_.flatten().tolist()}, accepted {r.n_accepted.flatten().tolist()}, "
+                  f"max |x| {float(r.x.abs().max()):.6e}")
+    row = dict(max_abs_err=max(errs), **summarize(measured),
+               bound_ms=statistics.mean(bd["bound_ms"] for bd in bounds),
+               bound_by=bounds[0]["bound_by"], library_ms=None,
+               lm_kernels_ms=statistics.mean(t["lm_kernels_ms"] for t in measured),
+               chain_ms=statistics.mean(s["chain_ms"] for s in shapes), fits=shapes)
+    print(f"[sea_thru_fit{tag}] {len(calls)} launches a step over {len(first)} shapes: device "
+          f"{fmt_ms(row['device_ms'])} ({row['device_method']}, the mean over the shapes; a "
+          f"step's fits {fmt_ms(sum(s['profiler_ms'] or s['graph_ms'] for s in shapes))}); no "
+          f"single PyTorch call computes the fit")
+    return {"sea_thru_fit": row}
+
+
 def require_enhance_close(tag: str, batched, single, nudged) -> str:
     """The batched enhanced image within the enhance tolerance of the
     one-camera one (see the module docstring); nudged is the one-camera
@@ -1868,6 +2172,10 @@ def phase_batched(canvas, rig, config, rows: dict, l2: dict) -> dict:
         out = step()
         launches = dict(cuda.LAUNCHES)
         require_launches(f"batched {tag}", launches, per_call, 1)
+        fits = record_fit_calls(step)
+        check_fits(f"batched {tag}", fits)
+        if cfg is config:
+            krows.update(phase_fit_kernel(fits, f" B={B}"))
         for k, n in launches.items():
             if n and k in krows:
                 krows[k]["launches"] = n
@@ -1968,9 +2276,11 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
     calls = record_lk_calls(lambda: step(4))
     torch.cuda.synchronize()
     lk_row = phase_lk_kernels(calls, f"fleet lk B={B}")["lk_track"]
-    lm_rows = phase_lm_kernels(record_lm_calls(lambda: perception_step(
-        prepare_frames(frames[4][0], dev), prepare_frames(frames[4][1], dev), rig, config, dev)),
-        f" fleet B={B}")
+    fits = record_fit_calls(lambda: perception_step(
+        prepare_frames(frames[4][0], dev), prepare_frames(frames[4][1], dev), rig, config, dev))
+    fit_row = phase_fit_kernel(fits, f" fleet B={B}")["sea_thru_fit"]
+    loop_calls = record_fit_loops(fits, f"fleet B={B}")
+    lm_rows = phase_lm_kernels(loop_calls, f" fleet B={B}")
     one = rows["lk_track"]
     print(f"[fleet lk] lk_track, {B} cameras in one launch a direction: device "
           f"{lk_row['device_ms'] * 1e3:.3f} us ({lk_row['device_method']}; graph replay "
@@ -2003,6 +2313,9 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
     if launches["lk_track"] != 2 * N_FRAMES:
         raise AssertionError(f"fleet: lk_track launched {launches['lk_track']} times in "
                              f"{N_FRAMES} calls")
+    check_fits(f"fleet B={B}", record_fit_calls(lambda: [perception_step(
+        prepare_frames(frames[i][0], dev), prepare_frames(frames[i][1], dev), rig, config, dev)
+        for i in range(5, 5 + N_FRAMES)]))
 
     lines = []
     for b in range(B):
@@ -2144,7 +2457,8 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
     print("[fleet stages] by calls: " + "; ".join(
         f"{name} {call_ms(fn, 5):.3f} ms" for name, fn in stages.items()))
     return (dict(lk_row, launches=launches["lk_track"] // N_FRAMES),
-            {k: dict(row, launches=launches[k] // N_FRAMES) for k, row in lm_rows.items()})
+            dict(fit_row, launches=launches["sea_thru_fit"] // N_FRAMES),
+            {k: dict(row, launches=len(loop_calls[k])) for k, row in lm_rows.items()})
 
 
 FARM_YAML = "config/nodes/FarmPerceptionNode.yaml"
@@ -3547,6 +3861,8 @@ def phase_sharded(canvas, rig, config, dev) -> dict:
         torch.cuda.synchronize()
         launches = dict(cuda.LAUNCHES)
         require_launches(f"sharded_perception_step N={n}", launches, per_frame, 1)
+        check_fits(f"sharded N={n}", record_fit_calls(
+            lambda: sharded_perception_step(left, right, rig, config, mesh)))
         if out.disparity.shape != (H, W) or out.enhanced_left.shape != (H, W, 3) \
                 or not all(bool(torch.isfinite(t).all()) for t in out):
             raise AssertionError(f"sharded_perception_step N={n}: bad shapes or non-finite outputs")
@@ -3665,8 +3981,11 @@ def main() -> int:
 
     l2 = l2_latency(dev)
     rows = phase_kernels(left_rgb, right_rgb, l2)
-    rows.update(phase_lm_kernels(record_lm_calls(
-        lambda: perception_step(left_rgb, right_rgb, rig, config, device=dev))))
+    fits = record_fit_calls(lambda: perception_step(left_rgb, right_rgb, rig, config, device=dev))
+    rows.update(phase_fit_kernel(fits))
+    # The step no longer launches lm_solve_small and lm_row_sum: hold them to
+    # their twins on the fits' loop with the kernels, on the same fits.
+    rows.update(phase_lm_kernels(record_fit_loops(fits, "perception_step")))
     launches, disp, runs = phase_end_to_end(left_rgb, right_rgb, rig, config)
     phase_graph(left_rgb, right_rgb, rig, config, disp, runs,
                 ("pm_match", rows["pm_match"]["graph_ms"]))
@@ -3689,7 +4008,7 @@ def main() -> int:
     phase_frontend_stage_times(fe, rig, config)
     phase_frontend_cpu_parity(fe, rig, config)
     batched = phase_batched(canvas, rig, config, rows, l2)
-    fleet_lk, fleet_lm = phase_fleet(canvas, rig, rows, dev)
+    fleet_lk, fleet_fit, fleet_lm = phase_fleet(canvas, rig, rows, dev)
     phase_farm_node(canvas, dev)
     phase_mesher_node(canvas, dev)
     vio, mission = phase_state_estimator(dev, smi)
@@ -3713,11 +4032,15 @@ def main() -> int:
     rows["lk_track"]["vio_node"] = deploy["lk_track"]["node"]
     rows["lk_track"]["vio_player"] = deploy["lk_track"]["player"]
     rows["lk_track"]["vio_threaded"] = deploy["lk_track"]["threaded"]
-    # And the LM kernels', from the fleet frontend's enhancement (phase 13),
-    # and from trilaterate in float64 and float32 (phase 17 (e)).
+    # And sea_thru_fit's, from the fleet frontend's enhancement (phase 13).
+    rows["sea_thru_fit"]["fleet"] = dict(cameras=N_CAMERAS, **fleet_fit)
+    # The LM kernels' launches are trilaterate's in float64 (phase 17 (e)),
+    # their path since the step's fits are one launch; their rows carry
+    # the fits' loop with the kernels at the step's and the fleet's shapes.
     for k, row in fleet_lm.items():
-        rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)
+        rows[k]["batched"] = dict(cameras=N_CAMERAS, path="the fits' loop", **row)
         rows[k]["trilaterate"] = deploy["trilaterate"][k]
+        launches[k] = deploy["trilaterate"][k]["float64"]["launches"]
     # pm_pass's, from the sharded step at the largest block count (phase 18).
     launches["pm_pass"] = sharded.pop("launches")
     rows["pm_pass"] = sharded

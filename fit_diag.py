@@ -17,7 +17,10 @@ camera's steps in the batch can be held to its steps alone:
 - whether each camera's enhanced image is bit-identical, and its max.
 
 On a tree with ``csrc/lm_solve.cu`` it first holds ``lm_solve_small`` and
-``lm_row_sum`` to their twins on the recorded systems, bit for bit.
+``lm_row_sum`` to their twins on the recorded systems, bit for bit. On a
+tree whose fits are one ``sea_thru_fit`` launch each, the fits run their
+loop with the LM kernels instead (bit for bit the kernel's result,
+``chip_smoke.py`` phase 3), so that each step can be recorded.
 
 Run on the GPU: ``python fit_diag.py [--tree DIR] [--save DIR]``: ``--tree``
 imports the package from another checkout (say the parent's, unpacked with
@@ -64,7 +67,16 @@ class Recorder:
         from ocean_perception_tpu_torch.ops import lm
         import torch
 
+        from ocean_perception_tpu_torch.ops import cuda
+
         rec = self
+        if hasattr(cuda, "sea_thru_fit"):
+            # On the card a fit is one sea_thru_fit launch, bit for bit its
+            # loop with the LM kernels (chip_smoke.py checks it): run the
+            # loop, whose steps can be recorded.
+            import chip_smoke as cs
+
+            cuda.sea_thru_fit = lambda model, *a: cs.FIT_PLAIN[model](*a, kernels=True)
         for mod, tag in ((backscatter, "backscatter"), (attenuation, "attenuation")):
             inner = mod.lm_solve
 

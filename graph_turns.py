@@ -8,8 +8,9 @@ checkouts in order and then in reverse (A B B A), a fresh Python process in
 each builds its kernels, captures ``chip_smoke.py``'s 720p frame of
 ``perception_step`` (PatchMatch, enhancement on) in one CUDA graph on each
 volume layout, and replays it over ``N_FRAMES`` perturbed frames, five
-times; it prints the median ms/frame of each layout and the sum of frame
-0's disparity, so that the checkouts can be seen to agree.
+times; it prints the median ms/frame of each layout, the sum of frame 0's
+disparity and a hash of frame 0's disparity, depth and enhanced image
+bytes, and checks that every checkout gave the same bytes.
 
 Prints one line per checkout and turn, the card's name and power limit,
 then one JSON object with each checkout's ms/frame in every turn.
@@ -27,7 +28,7 @@ from pathlib import Path
 import chip_smoke as cs
 
 CHILD = r"""
-import dataclasses, json, statistics, torch
+import dataclasses, hashlib, json, statistics, torch
 import chip_smoke as cs
 from ocean_perception_tpu_torch.core.cameras import PinholeCamera, StereoCamera
 from ocean_perception_tpu_torch.models.perception import PerceptionConfig, perception_step
@@ -64,8 +65,10 @@ for name, cfg in (("(H, W, D)", config), ("strips", dataclasses.replace(config, 
         runs.append(start.elapsed_time(end) / len(frames))
     static.copy_(frames[0])
     graph.replay()
+    bits = {f: hashlib.sha256(getattr(res, f).cpu().numpy().tobytes()).hexdigest()[:16]
+            for f in ("disparity", "depth", "enhanced_left")}
     out[name] = dict(ms_frame=statistics.median(runs), runs=runs,
-                     disparity_sum=float(res.disparity.double().sum()))
+                     disparity_sum=float(res.disparity.double().sum()), sha256=bits)
 print(json.dumps(out))
 """
 
@@ -86,6 +89,12 @@ def main() -> int:
         print(f"[turn {turn}] {d.name}: " + "; ".join(
             f"{k} {v['ms_frame']:.4f} ms/frame (runs {', '.join(f'{x:.4f}' for x in v['runs'])}), "
             f"disparity sum {v['disparity_sum']:.6e}" for k, v in r.items()))
+    hashes = {json.dumps({k: v["sha256"] for k, v in r.items()}, sort_keys=True)
+              for runs in results.values() for r in runs}
+    if len(hashes) != 1:
+        raise AssertionError(f"the checkouts' frame 0 outputs differ: {sorted(hashes)}")
+    print(f"frame 0's disparity, depth and enhanced image bit-identical in every checkout and "
+          f"turn, both layouts: {hashes.pop()}")
     print(smi)
     print(json.dumps({"checkouts": results}))
     return 0

@@ -11,7 +11,8 @@ checkout's source with another block size. Each build goes into ``ocean_percepti
 (``turns.py``), and ptxas's registers and spills are printed.
 
 The systems are the perception step's own: the ``lm_solve_small`` launches
-of one 720p ``perception_step`` (``chip_smoke.py``'s scene and config),
+of one 720p ``perception_step`` (``chip_smoke.py``'s scene and config; its
+fits run by their loop with the LM kernels, ``chip_smoke.fits_by_loop``),
 recorded at one camera (M = 1, the backscatter fit, and 2, the attenuation
 fit's two starts) and at four (M = 4 and 8). M = 3 and 12, the attenuation
 fit with a carried guess, are the first systems of the attenuation's
@@ -171,8 +172,9 @@ def recorded(dev) -> tuple[dict, list]:
     right = torch.as_tensor(np.stack([r for _, r in pairs]), device=dev)
     systems = {}
     for batch, sizes in (((0,), (1, 2, 3)), (slice(None), (4, 8, 12))):
-        calls = cs.record_lm_calls(lambda: perception_step(left[batch], right[batch], rig, config,
-                                                           device=dev))
+        with cs.fits_by_loop():  # the step's fits are one sea_thru_fit launch each
+            calls = cs.record_lm_calls(lambda: perception_step(left[batch], right[batch], rig,
+                                                               config, device=dev))
         for M, args in step_systems(calls["lm_solve_small"], sizes).items():
             systems[f"step M={M}"] = args
 

@@ -19,7 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..ops.lm import LMConfig, channel_sq, lm_solve, row_sum
+from ..ops.lm import LMConfig, LMResult, channel_sq, lm_solve, row_sums
 from .formation import beta_d_of_z, beta_guesses
 
 
@@ -94,21 +94,54 @@ def estimate_beta(
     return fit_beta(*_grid_samples(range_img, illuminant, num_px), iters, X0)
 
 
+def beta_config(iters: int = 20) -> LMConfig:
+    """The attenuation fit's LM settings: Marquardt diagonal scaling with full
+    steps, as in the reference port (it reaches the reference's minima in ~4x
+    fewer iterations)."""
+    return LMConfig(max_iters=iters, lambda0_scale=1e-3, lambda_up=4.0, lambda_down=3.0,
+                    step_size=1.0, marquardt_diag=True)
+
+
 def fit_beta(z: torch.Tensor, E: torch.Tensor, valid: torch.Tensor, iters: int = 20,
              X0: torch.Tensor | None = None) -> BetaFit:
     """The fit of :func:`estimate_beta` on its samples: z (..., N), E (...,
-    N, 3) and valid (..., N)."""
+    N, 3) and valid (..., N). On CUDA tensors one launch of
+    ``sea_thru_fit`` (csrc/sea_thru_fit.cu, a block a camera and start), on
+    the CPU :func:`beta_lm_plain`."""
     if X0 is None:
         X0 = beta_guesses(z.device)[0]
     single = X0.ndim == 1
-    X0 = _clamp_beta(X0.float())
+    X0 = X0.float()
     if single:
         X0 = X0[None]
+    config = beta_config(iters)
+    if z.is_cuda:
+        from ..ops import cuda
+
+        result = cuda.sea_thru_fit("attenuation", E.contiguous(), z.contiguous(),
+                                   valid.contiguous(), X0, config)
+    else:
+        result = beta_lm_plain(E, z, valid, X0, config)
+    if single:
+        return BetaFit(result.x[..., 0, :], result.error[..., 0])
+    return BetaFit(result.x, result.error)
+
+
+def beta_lm_plain(E: torch.Tensor, z: torch.Tensor, valid: torch.Tensor, x0: torch.Tensor,
+                  config: LMConfig, kernels: bool = False) -> LMResult:
+    """The attenuation fit's LM from the starts x0, (G, 12) or (..., G, 12),
+    projected first: the plain version of ``sea_thru_fit``,
+    ``ops/lm.py::lm_solve`` over the model's residuals and Jacobian, on any
+    device, every start its own fit. ``kernels`` takes its steps and error
+    sums by ``lm_solve_small`` and ``lm_row_sum`` on CUDA tensors; the CPU
+    runs their twins either way."""
+    X0 = _clamp_beta(x0)
     # The samples broadcast over the starts: (..., 1, N) against (..., G, N).
     w_valid = valid.float()[..., None, :]
     n_valid = w_valid.sum(dim=-1)
     log_E = torch.log(torch.clamp_min(E, 1e-3))[..., None, :, :]  # (..., 1, N, 3)
     zz = z[..., None, :, None]
+    total = row_sums(kernels)
 
     def terms(X):
         X = X[..., None, :]  # broadcast the parameters over the samples
@@ -136,22 +169,10 @@ def fit_beta(z: torch.Tensor, E: torch.Tensor, valid: torch.Tensor, iters: int =
     def error_fn(X):
         r_c = terms(X)[0]
         r = channel_sq(r_c) * w_valid
-        return row_sum(r) / torch.clamp_min(n_valid, 1.0)
+        return total(r) / torch.clamp_min(n_valid, 1.0)
 
-    result = lm_solve(
-        residual_jac,
-        X0,
-        # Marquardt diagonal scaling with full steps, as in the reference
-        # port (it reaches the reference's minima in ~4x fewer iterations).
-        LMConfig(max_iters=iters, lambda0_scale=1e-3, lambda_up=4.0, lambda_down=3.0,
-                 step_size=1.0, marquardt_diag=True),
-        project=_clamp_beta,
-        valid_count=n_valid,
-        error_fn=error_fn,
-    )
-    if single:
-        return BetaFit(result.x[..., 0, :], result.error[..., 0])
-    return BetaFit(result.x, result.error)
+    return lm_solve(residual_jac, X0, config, project=_clamp_beta, valid_count=n_valid,
+                    error_fn=error_fn, kernels=kernels)
 
 
 def estimate_beta_multi_start(

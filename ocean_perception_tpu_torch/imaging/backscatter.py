@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.histogram import masked_percentile_threshold
-from ..ops.lm import LMConfig, channel_sq, lm_solve, row_sum
+from ..ops.lm import LMConfig, LMResult, channel_sq, lm_solve, row_sums
 from .formation import backscatter_start
 
 BACKGROUND_RANGE = 20.0  # meters; backscatter.cpp kBackgroundRange
@@ -154,14 +154,42 @@ def estimate_backscatter(
     return fit_backscatter(*sample_masked_pixels(image, range_img, dark_mask, num_px), iters)
 
 
+def backscatter_config(iters: int = 10) -> LMConfig:
+    """The backscatter fit's LM settings."""
+    return LMConfig(max_iters=iters, lambda0_scale=1e-3, lambda_up=2.0, lambda_down=3.0,
+                    step_size=1.0, marquardt_diag=True)
+
+
 def fit_backscatter(rgb: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
                     iters: int = 10) -> BackscatterFit:
     """The fit of :func:`estimate_backscatter` on its samples: rgb (..., N,
-    3), z (..., N) and valid (..., N)."""
-    X0 = backscatter_start(rgb.device).expand(*z.shape[:-1], 12)
+    3), z (..., N) and valid (..., N). On CUDA tensors one launch of
+    ``sea_thru_fit`` (csrc/sea_thru_fit.cu, a block a camera), on the CPU
+    :func:`backscatter_lm_plain`."""
+    x0, config = backscatter_start(rgb.device), backscatter_config(iters)
+    if z.is_cuda:
+        from ..ops import cuda
+
+        result = cuda.sea_thru_fit("backscatter", rgb.contiguous(), z.contiguous(),
+                                   valid.contiguous(), x0, config)
+    else:
+        result = backscatter_lm_plain(rgb, z, valid, x0, config)
+    X = result.x
+    return BackscatterFit(X[..., 0:3], X[..., 3:6], X[..., 6:9], X[..., 9:12], result.error)
+
+
+def backscatter_lm_plain(rgb: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
+                         x0: torch.Tensor, config: LMConfig, kernels: bool = False) -> LMResult:
+    """The backscatter fit's LM from x0 ((12,) or one a camera, (..., 12)):
+    the plain version of ``sea_thru_fit``, ``ops/lm.py::lm_solve`` over the
+    model's residuals and Jacobian, on any device. ``kernels`` takes its
+    steps and error sums by ``lm_solve_small`` and ``lm_row_sum`` on CUDA
+    tensors; the CPU runs their twins either way."""
+    X0 = x0.expand(*z.shape[:-1], 12)
     w_valid = valid.float()
     n_valid = w_valid.sum(dim=-1)
     zz = z[..., None]
+    total = row_sums(kernels)
 
     def residual_jac(X):
         r_c, atten_back, exp_beta_D = _residual_terms(X, rgb, z)
@@ -180,19 +208,10 @@ def fit_backscatter(rgb: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     def error_fn(X):
         r_c, _, _ = _residual_terms(X, rgb, z)
         r = channel_sq(r_c) * w_valid
-        return row_sum(r) / torch.clamp_min(n_valid, 1.0)
+        return total(r) / torch.clamp_min(n_valid, 1.0)
 
-    result = lm_solve(
-        residual_jac,
-        X0,
-        LMConfig(max_iters=iters, lambda0_scale=1e-3, lambda_up=2.0, lambda_down=3.0,
-                 step_size=1.0, marquardt_diag=True),
-        project=lambda X: torch.clamp_min(X, 0.0),
-        valid_count=n_valid,
-        error_fn=error_fn,
-    )
-    X = result.x
-    return BackscatterFit(X[..., 0:3], X[..., 3:6], X[..., 6:9], X[..., 9:12], result.error)
+    return lm_solve(residual_jac, X0, config, project=lambda X: torch.clamp_min(X, 0.0),
+                    valid_count=n_valid, error_fn=error_fn, kernels=kernels)
 
 
 def remove_backscatter(

@@ -15,10 +15,14 @@ public functions that dispatch to them (``stereo/cost.py``,
 ``stereo/patchmatch.py``, ``tracking/lk.py``).
 
 ``lm_solve_small`` and ``lm_row_sum`` (``csrc/lm_solve.cu``) are the
-Levenberg-Marquardt step of the Sea-thru fits and its error sums, in an
-order that does not depend on the batch (``ops/lm.py``); a float64 tensor
-launches the double build of the same code (the float64 fits of
-``vio/trilateration.py``), counted under the same name.
+Levenberg-Marquardt step and its error sums, in an order that does not
+depend on the batch (``ops/lm.py``); a float64 tensor launches the double
+build of the same code (the float64 fits of ``vio/trilateration.py``),
+counted under the same name. ``sea_thru_fit`` (``csrc/sea_thru_fit.cu``)
+runs a whole Sea-thru fit, every LM iteration, in one launch, a block a
+fit; its plain version is the fits' loop over the two
+(``imaging/backscatter.py::backscatter_lm_plain``,
+``imaging/attenuation.py::beta_lm_plain``).
 
 ``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
 volume in the two strip layouts; each has its own entry in
@@ -44,6 +48,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .windows import fold_rings
@@ -51,8 +56,9 @@ from .windows import fold_rings
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu", "lm_solve.cu")
-HEADERS = ("cost_terms.cuh",)
+SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu", "lm_solve.cu",
+           "sea_thru_fit.cu")
+HEADERS = ("cost_terms.cuh", "lm_solve.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -61,7 +67,8 @@ NVCC_FLAGS = (
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"cost_volume": 0, "pm_match": 0, "build_volumes": 0, "pm_match_strip": 0,
-            "pm_pass": 0, "lk_track": 0, "lm_solve_small": 0, "lm_row_sum": 0}
+            "pm_pass": 0, "lk_track": 0, "lm_solve_small": 0, "lm_row_sum": 0,
+            "sea_thru_fit": 0}
 
 
 def reset_launches() -> None:
@@ -160,6 +167,7 @@ class _LKTrack(ctypes.Structure):
 
 
 _SIGNATURES["opt_lk_track"] = [ctypes.POINTER(_LKTrack), _P]
+_SIGNATURES["opt_sea_thru_fit"] = [_I] + [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P]
 
 
 @functools.lru_cache(maxsize=1)
@@ -497,3 +505,85 @@ def lm_row_sum(x) -> torch.Tensor:
     _check(err, "lm_row_sum")
     LAUNCHES["lm_row_sum"] += 1
     return out
+
+
+# The Sea-thru fits of sea_thru_fit: the parameters of both models, the
+# samples a fit (K <= 64 leaves a segment of the trees), and the kernel's
+# code of each model.
+SEA_THRU_P = 12
+SEA_THRU_MAX_N = 2048
+SEA_THRU_MODELS = {"backscatter": 0, "attenuation": 1}
+
+
+def _fit_operand(t, name: str, dtype, shape) -> None:
+    """dtype and shape first, so that a bad argument raises before the
+    device is looked at."""
+    if t.dtype != dtype:
+        raise ValueError(f"sea_thru_fit: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"sea_thru_fit: {name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def sea_thru_fit(model: str, colour, z, valid, x0, config):
+    """One Sea-thru LM fit a block, every iteration in one launch
+    (csrc/sea_thru_fit.cu): ``model`` "backscatter" (colour the (..., N, 3)
+    rgb samples, x0 the (12,) start or one a camera, (..., 12)) or
+    "attenuation" (colour the illuminant E, x0 (G, 12) starts or (..., G,
+    12), G fits a camera); z (..., N) float32, valid (..., N) bool; config an
+    ``ops/lm.py::LMConfig``. Returns ``LMResult`` (x, error, lambda_,
+    n_accepted) with x0's shape, the batch in front. See
+    imaging/backscatter.py::backscatter_lm_plain and
+    imaging/attenuation.py::beta_lm_plain, the plain versions."""
+    from .lm import LMResult
+
+    if model not in SEA_THRU_MODELS:
+        raise ValueError(f"sea_thru_fit: model must be one of {list(SEA_THRU_MODELS)}, got "
+                         f"{model!r}")
+    if z.ndim < 1:
+        raise ValueError("sea_thru_fit: z must be (..., N)")
+    *batch, N = z.shape
+    if not 1 <= N <= SEA_THRU_MAX_N:
+        raise ValueError(f"sea_thru_fit takes 1..{SEA_THRU_MAX_N} samples a fit, got {N}")
+    if x0.shape[-1:] != (SEA_THRU_P,):
+        raise ValueError(f"sea_thru_fit fits {SEA_THRU_P} parameters, got x0 of shape "
+                         f"{tuple(x0.shape)}")
+    _fit_operand(z, "z", torch.float32, z.shape)
+    _fit_operand(colour, "colour", torch.float32, (*batch, N, 3))
+    _fit_operand(valid, "valid", torch.bool, (*batch, N))
+    starts = 0 if model == "backscatter" else 1  # x0's axes of a camera's fits
+    if x0.ndim < 1 + starts:
+        raise ValueError(f"sea_thru_fit: {model} takes x0 of shape "
+                         f"{'(..., 12)' if starts == 0 else '(..., G, 12)'}, got {tuple(x0.shape)}")
+    lead = x0.shape[:x0.ndim - 1 - starts]
+    fit_shape = (*batch, *x0.shape[len(lead):-1])
+    G = math.prod(x0.shape[len(lead):-1])
+    if lead and all(s == 0 for s in x0.stride()[:len(lead)]):
+        x0 = x0[(0,) * len(lead)]  # one start expanded over the cameras: read it once
+        lead = ()
+    if tuple(lead) not in ((), tuple(batch)):
+        raise ValueError(f"sea_thru_fit: x0 of shape {tuple(x0.shape)} is neither one start "
+                         f"set nor one a camera of {tuple(batch)}")
+    _fit_operand(x0, "x0", torch.float32, x0.shape)
+    for name, t in (("colour", colour), ("z", z), ("valid", valid), ("x0", x0)):
+        _require(t, name, (t.dtype,))
+    if config.max_iters < 0:
+        raise ValueError(f"sea_thru_fit: max_iters must be >= 0, got {config.max_iters}")
+    f32 = [float(np.float32(v)) for v in (
+        config.lambda0_scale, config.lambda_up,
+        # lam / lambda_down on a CUDA tensor: lam times the float reciprocal.
+        np.float32(1.0) / np.float32(config.lambda_down),
+        config.step_size, config.min_lambda, config.max_lambda)]
+    x = torch.empty((*fit_shape, SEA_THRU_P), dtype=torch.float32, device=z.device)
+    error = torch.empty(fit_shape, dtype=torch.float32, device=z.device)
+    lam = torch.empty_like(error)
+    n_acc = torch.empty(fit_shape, dtype=torch.int32, device=z.device)
+    with torch.cuda.device(z.device):
+        err = library().opt_sea_thru_fit(
+            SEA_THRU_MODELS[model], colour.data_ptr(), z.data_ptr(), valid.data_ptr(),
+            x0.data_ptr(), x.data_ptr(), error.data_ptr(), lam.data_ptr(), n_acc.data_ptr(),
+            math.prod(batch), G, N, int(bool(lead)), config.max_iters,
+            int(config.marquardt_diag), *f32, _stream(z))
+    _check(err, "sea_thru_fit")
+    LAUNCHES["sea_thru_fit"] += 1
+    return LMResult(x=x, error=error, lambda_=lam, n_accepted=n_acc)

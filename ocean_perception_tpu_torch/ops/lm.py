@@ -6,6 +6,11 @@ independent fits (the attenuation multi-start, or the cameras of a fleet)
 is one call. The loop runs a fixed number of iterations with
 ``torch.where`` accept/reject, so it never reads a value back to the host.
 
+On the card the Sea-thru fits do not come here: each runs whole in one
+launch of ``sea_thru_fit`` (``csrc/sea_thru_fit.cu``), bit for bit this
+loop's result; this loop is their plain version (``kernels=False`` keeps
+it off the port's kernels on the card too) and trilateration's LM.
+
 A system's bits do not depend on the batch it is solved in. Its damped
 normal equations, their solve and the error sums that accept or reject a
 step are formed by fixed arithmetic in a fixed order (a pairwise tree over
@@ -133,8 +138,10 @@ def lm_step(J: torch.Tensor, r: torch.Tensor, lam: torch.Tensor, marquardt: bool
     return lm_step_plain(J, r, lam, marquardt)
 
 
-def _mean_sq(r: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    return row_sum(r * r) / torch.clamp_min(count, 1.0)
+def row_sums(kernels: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The error sums of :func:`lm_solve`: :func:`row_sum` (``lm_row_sum``
+    on a CUDA tensor), or its twin on any device."""
+    return row_sum if kernels else tree_sum_plain
 
 
 def lm_solve(
@@ -144,24 +151,32 @@ def lm_solve(
     project: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     valid_count: Optional[torch.Tensor] = None,
     error_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    kernels: bool = True,
 ) -> LMResult:
     """Minimize ||r(x)||^2 with LM.
 
     ``valid_count``: number of live residual rows (masked rows must be zero
     in r and J), used only to normalize the reported error. ``error_fn``: the
     accept/reject metric; the imaging fits pass the unweighted mean SSD,
-    summed with :func:`row_sum`."""
+    summed with ``row_sums(kernels)``. ``kernels``: the steps and sums by
+    :func:`lm_step` and :func:`row_sum`, which launch ``lm_solve_small`` and
+    ``lm_row_sum`` on CUDA tensors, or (False) by their twins on any
+    device."""
+    step, total = (lm_step if kernels else lm_step_plain), row_sums(kernels)
     r0, J0 = residual_jac(x0)
     if valid_count is None:
         count = torch.full(r0.shape[:-1], float(r0.shape[-1]), dtype=r0.dtype, device=r0.device)
     else:
         count = torch.as_tensor(valid_count, dtype=r0.dtype, device=r0.device)
 
+    def mean_sq(r):
+        return total(r * r) / torch.clamp_min(count, 1.0)
+
     def eval_error(x, r):
-        return error_fn(x) if error_fn is not None else _mean_sq(r, count)
+        return error_fn(x) if error_fn is not None else mean_sq(r)
 
     # diag(JtJ) in the tree order of the step's normal equations.
-    lam = config.lambda0_scale * row_sum((J0 * J0).transpose(-1, -2)).amax(dim=-1)
+    lam = config.lambda0_scale * total((J0 * J0).transpose(-1, -2)).amax(dim=-1)
     err = eval_error(x0, r0)
     x = x0
     n_acc = torch.zeros(lam.shape, dtype=torch.int32, device=x0.device)
@@ -170,7 +185,7 @@ def lm_solve(
         r, J = residual_jac(x)
         # A singular system gives a non-finite step (as JAX's solve does);
         # the guard below zeroes it.
-        delta = lm_step(J, r, lam, config.marquardt_diag)
+        delta = step(J, r, lam, config.marquardt_diag)
         finite = torch.isfinite(delta).all(dim=-1, keepdim=True)
         delta = torch.where(finite, delta, 0.0)
         x_new = x + config.step_size * delta
@@ -179,7 +194,7 @@ def lm_solve(
         if error_fn is not None:
             err_new = error_fn(x_new)
         else:
-            err_new = _mean_sq(residual_jac(x_new)[0], count)
+            err_new = mean_sq(residual_jac(x_new)[0])
         better = err_new < err
         x = torch.where(better[..., None], x_new, x)
         err = torch.where(better, err_new, err)

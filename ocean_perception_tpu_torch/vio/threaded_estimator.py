@@ -50,6 +50,14 @@ estimator to lose its track. While its threads run, the wrapper keeps the
 objects that existed when they started in the collector's permanent
 generation (``gc.freeze``), so a full collection walks only what was made
 since; ``shutdown`` gives them back to the collector once no wrapper runs.
+
+The EKF history keeps ``ekf_history_sec`` of filter states, made on the
+filter's stream, and grows for that long. A filter step whose states
+outgrow the stream's pool in PyTorch's caching allocator waits for a
+cudaMalloc, and on the card that wait stopped the filter for up to 66 ms
+while the smoother's kernels ran (PERF.md §6). Before its threads start,
+the wrapper fills the pool with the memory of a full history
+(``_reserve_filter_memory``).
 """
 
 from __future__ import annotations
@@ -79,6 +87,12 @@ from .state_estimator import StateEstimator, StateEstimatorParams
 # frozen while any does (gc.freeze and gc.unfreeze act on the process).
 _running = [0]
 _running_lock = threading.Lock()
+# The IMU rate whose ekf_history_sec of filter states ``initialize`` reserves
+# in the filter stream's memory pool (0: none), and the size of the blocks
+# it reserves them in: the largest request of the caching allocator's pool
+# of small blocks, which the states' tensors come from.
+RESERVE_IMU_HZ = 400.0
+_RESERVE_BLOCK = 1 << 20
 
 
 class ThreadedStateEstimator:
@@ -120,6 +134,7 @@ class ThreadedStateEstimator:
             # Every graph is captured before the threads start, and their
             # streams start after the initial state exists.
             self.core.capture_graphs()
+            self._reserve_filter_memory()
             torch.cuda.synchronize(self.core.device)
         with _running_lock:
             _running[0] += 1
@@ -129,6 +144,21 @@ class ThreadedStateEstimator:
                                  name=f"estimator-{name}", daemon=True)
             t.start()
             self._threads.append(t)
+
+    def _reserve_filter_memory(self) -> None:
+        """Fill the filter stream's pool of the caching allocator, before
+        the threads start, with the memory of ``ekf_history_sec`` of filter
+        states at ``RESERVE_IMU_HZ``, twice over (a state the vision thread
+        read goes back to the pool only once its reads have run), so that
+        no filter step waits for a cudaMalloc while the history grows."""
+        state = self.core.ekf_state
+        per_state = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in state)
+        n_states = int(self.core.params.ekf_history_sec * RESERVE_IMU_HZ)
+        n_blocks = -(-2 * n_states * per_state // _RESERVE_BLOCK)
+        with torch.cuda.stream(self._streams["filter"]):
+            held = [torch.empty(_RESERVE_BLOCK, dtype=torch.uint8, device=self.core.device)
+                    for _ in range(n_blocks)]
+        del held
 
     def _on_stream(self, name: str, loop) -> None:
         stream = self._streams.get(name)

@@ -14,6 +14,7 @@ arithmetic in a fixed order for each system.
 - ``tree_sum_plain`` against a float64 sum, padded lengths included;
 - ``enhance_underwater`` on 3 cameras in one call equals each camera's own
   call bit for bit on the CPU;
+- on CPU tensors the step, the sums and the Sea-thru fits launch no kernel;
 - ``chip_smoke.lm_adversarial``'s batch does what it is for: its first
   system's first pivot is a tie whose other choice gives other bits, its
   zero pivot and its NaN give steps that are not finite;
@@ -137,10 +138,19 @@ def test_adversarial_batch_on_cpu(n, p, dtype):
 
 
 def test_cpu_lm_launches_no_kernel():
+    """The LM step, the sums and the Sea-thru fits on CPU tensors run the
+    plain versions."""
+    import chip_smoke as cs
+    from ocean_perception_tpu_torch.imaging.attenuation import fit_beta
+    from ocean_perception_tpu_torch.imaging.backscatter import fit_backscatter
+
     cuda.reset_launches()
     J, r, lam = _systems(2)
     lm.lm_step(J, r, lam, True)
     lm.row_sum(r)
+    fit_backscatter(*cs.fit_samples("backscatter", 2, 64, "cpu"), iters=2)
+    E, z, valid = cs.fit_samples("attenuation", 2, 64, "cpu")
+    fit_beta(z, E, valid, iters=2, X0=cs.fit_start("attenuation", "cpu"))
     assert set(cuda.LAUNCHES.values()) == {0}
 
 

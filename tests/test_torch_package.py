@@ -579,10 +579,8 @@ def test_batched_perception_step_on_the_card(cuda_device, strips):
     out = perception_step(left, right, rig, config, device=cuda_device)
     want = {"build_volumes": 1, "pm_match_strip": 1} if strips else {"cost_volume": 1,
                                                                      "pm_match": 1}
-    # The enhancement's Sea-thru fits: a step an iteration, and the error
-    # sums (two at each fit's start, one an iteration).
-    iters = config.enhance.back_opt_iters + config.enhance.beta_opt_iters
-    want.update(lm_solve_small=iters, lm_row_sum=iters + 4)
+    # The enhancement's Sea-thru fits: one launch each.
+    want.update(sea_thru_fit=2)
     assert {k: v for k, v in cuda.LAUNCHES.items() if v} == want
     assert out.disparity.shape == (3, H, W) and out.enhanced_left.shape == (3, H, W, 3)
     for b in range(3):

@@ -421,6 +421,28 @@ def test_threaded_estimator_graphs_equal_calls(cuda_device):
 
 
 @pytest.mark.gpu
+def test_threaded_estimator_reserves_the_filter_memory(cuda_device):
+    """Before its threads start, the wrapper fills the filter stream's pool
+    with ekf_history_sec of filter states at RESERVE_IMU_HZ: a full history
+    of states made on the filter stream takes no new memory from the card."""
+    from ocean_perception_tpu_torch.vio import threaded_estimator as tmod
+
+    te = tmod.ThreadedStateEstimator(params(window=4), rig(), device=cuda_device)
+    te.initialize(0, np.eye(4))
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved(cuda_device)
+        state = te.core.ekf_state
+        n_states = int(te.core.params.ekf_history_sec * tmod.RESERVE_IMU_HZ)
+        with torch.cuda.stream(te._streams["filter"]):
+            history = [[torch.empty_like(t) for t in state] for _ in range(n_states)]
+        assert torch.cuda.memory_reserved(cuda_device) == before
+        del history
+    finally:
+        te.shutdown()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 3, 64])
 @pytest.mark.parametrize("marquardt", [False, True])
 def test_lm_float64_kernels_match_twins(cuda_device, M, marquardt):
