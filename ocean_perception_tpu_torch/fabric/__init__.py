@@ -11,7 +11,9 @@ in-process loopback for single-process pipelines); ``messages`` defines
 binary-packed message types covering the reference's lcmtypes;
 ``lcm_wire`` speaks the LCM wire format itself; the image path uses
 ``shm_ring``, a native lock-free single-producer ring buffer over shared
-memory (ctypes-bound). None of it needs OpenCV except the JPEG images.
+memory (ctypes-bound); ``native_bus`` is the C++ UDP transport and
+``chaos`` a seeded fault-injecting wrapper for any bus. None of it needs
+OpenCV except the JPEG images.
 """
 
 from .messages import (  # noqa: F401
@@ -28,4 +30,6 @@ from .messages import (  # noqa: F401
     decode_message,
 )
 from .pubsub import PubSub, InProcessBus, UdpMulticastBus  # noqa: F401
+from .native_bus import NativeUdpBus  # noqa: F401
+from .chaos import ChaosBus  # noqa: F401
 from .shm_ring import ShmRingWriter, ShmRingReader, native_available  # noqa: F401

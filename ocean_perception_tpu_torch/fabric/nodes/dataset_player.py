@@ -30,7 +30,8 @@ from ...core.measurements import StereoImage
 from ...datasets import get_dataset_by_name
 from ...vio.state_estimator import StateEstimator, StateEstimatorParams, StateStamped
 from ..messages import PoseStampedMessage
-from ..pubsub import InProcessBus, PubSub, UdpMulticastBus
+from ..native_bus import bus_class
+from ..pubsub import InProcessBus, PubSub
 from ...core.cameras import PinholeCamera, StereoCamera
 from .state_estimator_node import matrix_quat
 
@@ -222,7 +223,7 @@ def main(argv=None) -> int:
     ap.add_argument("--speed", type=float, default=0.0, help="0 = as fast as possible")
     ap.add_argument("--udp", action="store_true", help="publish on UDP multicast")
     ap.add_argument("--native-bus", action="store_true",
-                    help="use the C++ UDP transport (not in this package yet)")
+                    help="use the C++ UDP transport (same wire format; with --lcm, the LCM wire)")
     ap.add_argument(
         "--lcm", action="store_true",
         help="publish real LCM wire format (interop with reference-era peers)",
@@ -249,13 +250,8 @@ def main(argv=None) -> int:
         # (ocean-channel-logger / stock lcm-logger output).
         args.dataset = "lcmlog"
 
-    if args.native_bus:
-        raise SystemExit("--native-bus: the C++ transport (fabric/native_bus.py) is not "
-                         "ported to ocean_perception_tpu_torch yet; use --udp or --lcm")
-    if args.udp or args.lcm:
-        bus_cls = UdpMulticastBus
-        if args.lcm:
-            from ..lcm_wire import LcmUdpBus as bus_cls
+    if args.udp or args.native_bus or args.lcm:
+        bus_cls = bus_class(args.native_bus, args.lcm)
         bus = bus_cls(port=args.port) if args.port else bus_cls()
     else:
         bus = InProcessBus()

@@ -19,7 +19,8 @@ at 20 Hz of 200 Hz).
 
 Run: ``python -m ocean_perception_tpu_torch.fabric.nodes.state_estimator_node
 --config config/nodes/StateEstimatorNode.yaml --shared config/shared/Farmsim.yaml``
-(``--device cpu`` without a card, ``--lcm`` for the LCM wire format).
+(``--device cpu`` without a card, ``--lcm`` for the LCM wire format,
+``--native-bus`` for the C++ transport).
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ from ..messages import (
     ShmImageHeader,
     StereoImageMessage,
 )
-from ..pubsub import PubSub, UdpMulticastBus
+from ..native_bus import bus_class
+from ..pubsub import PubSub
 from ..shm_ring import ShmRingReader
 
 # Default channel names; overridden by config/nodes/StateEstimatorNode.yaml
@@ -272,7 +274,7 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=None, help="UDP multicast port")
     ap.add_argument(
         "--native-bus", action="store_true",
-        help="use the C++ UDP transport (not in this package yet)",
+        help="use the C++ UDP transport (same wire format; with --lcm, the LCM wire)",
     )
     ap.add_argument(
         "--lcm", action="store_true",
@@ -298,13 +300,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.native_bus:
-        raise SystemExit("--native-bus: the C++ transport (fabric/native_bus.py) is not "
-                         "ported to ocean_perception_tpu_torch yet; use the default UDP bus "
-                         "or --lcm")
-    bus_cls = UdpMulticastBus
-    if args.lcm:
-        from ..lcm_wire import LcmUdpBus as bus_cls
+    bus_cls = bus_class(args.native_bus, args.lcm)
     bus = bus_cls(port=args.port) if args.port else bus_cls()
     if args.config and args.shared:
         node = StateEstimatorNode.from_config(bus, args.config, args.shared, device=args.device)

@@ -38,7 +38,7 @@ def _load_native():
             # Dependency-checked: no-op when up to date, rebuilds stale libs
             # (e.g. after new native sources were added to the Makefile).
             subprocess.run(
-                ["make", "-s", "-C", _NATIVE_DIR, f"BUILD={_BUILD_DIR}"],
+                ["make", "-s", "-C", _NATIVE_DIR, f"BUILD={_BUILD_DIR}", "shm"],
                 check=True, capture_output=True,
             )
         except Exception:

@@ -53,6 +53,29 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# Modules of the JAX package with no counterpart at the same path in the
+# port, each with its reason.
+NOT_PORTED = {
+    "ops/pallas": "the Pallas TPU kernels: ported as the CUDA kernels of csrc/",
+    "utils/platform.py": "JAX's compile cache and platform flags",
+    "imaging/oracle.py": "a numpy oracle that the tests import from the JAX package",
+    "stereo/oracle.py": "a numpy oracle that the tests import from the JAX package",
+    "vio/oracle.py": "a numpy oracle that the tests import from the JAX package",
+}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    jax_root, port_root = REPO / "ocean_perception_tpu", REPO / "ocean_perception_tpu_torch"
+    sources = sorted(p.relative_to(jax_root).as_posix() for p in jax_root.rglob("*")
+                     if p.suffix in (".py", ".cpp") and "__pycache__" not in p.parts)
+    exempt = [m for m in sources if any(m == k or m.startswith(k + "/") for k in NOT_PORTED)]
+    missing = [m for m in sources if m not in exempt and not (port_root / m).is_file()]
+    assert not missing, missing
+    for k in NOT_PORTED:  # the list names only what exists there and not here
+        assert (jax_root / k).exists() and not (port_root / k).exists(), k
+    assert len(exempt) == len(list((jax_root / "ops" / "pallas").glob("*.py"))) + 4
+
+
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
     proc = _run(["chip_smoke.py"], REPO)
     assert proc.returncode != 0

@@ -503,9 +503,37 @@ def test_trajectory_csv(tmp_path, port_node):
         np.testing.assert_array_equal(np.array(row[1:], np.float64), msg.pose)
 
 
-def test_node_main_refuses_the_native_bus():
-    with pytest.raises(SystemExit, match="fabric/native_bus.py"):
-        tnode.main(["--native-bus", "--device", "cpu"])
+def test_node_main_refuses_the_native_bus(monkeypatch):
+    """``--native-bus`` no longer exits (the transport is ported): the node
+    comes up on the C++ bus, and with ``--lcm`` on its LCM mode, as JAX's."""
+    import threading
+
+    from ocean_perception_tpu_torch.fabric import native_bus
+
+    made = []
+
+    def bus_class(native, lcm):
+        cls = native_bus.bus_class(native, lcm)
+        return lambda **kw: made.append(cls(**kw)) or made[-1]
+
+    class Event(threading.Event):
+        def wait(self, timeout=None):
+            if timeout is None:  # main's wait for ctrl-c
+                raise KeyboardInterrupt
+            return super().wait(timeout)
+
+    monkeypatch.setattr(tnode, "bus_class", bus_class)
+    patched = type(threading)("threading")  # the node module's threading, its Event patched
+    patched.__dict__.update(threading.__dict__, Event=Event)
+    monkeypatch.setattr(tnode, "threading", patched)
+    try:
+        for flags, cls in ((["--native-bus"], native_bus.NativeUdpBus),
+                           (["--native-bus", "--lcm"], native_bus.NativeLcmBus)):
+            assert tnode.main([*flags, "--port", "7947", "--device", "cpu"]) == 0
+            assert type(made[-1]) is cls
+    finally:
+        for bus in made:
+            bus.close()
 
 
 # -- the threaded estimator ---------------------------------------------------
