@@ -243,7 +243,26 @@ disparity and motion, in phases:
    off): 2 s of IMU at rest biased by FID_IMU_BIAS drift the filter past
    0.1 m, one sighting on a channel of its own (pose sigmas 0.01) snaps it
    within FID_MAX_SNAP m of the truth; the ms from publish to the snapped
-   filter state.
+   filter state;
+20. the LK tracker's two options on ``full_frontend_step`` at 720p with the
+   frontend's tracker at full width (window 21, 4 levels, 200 landmarks),
+   each as phase 10 runs the frontend (4 warm-up frames, 8 timed: launches,
+   median |track error| < 0.1 px, >= 50 alive, no host sync, the frame as
+   one CUDA graph equal to the call path): (a) the unbounded walk
+   (``search_slack=0``) on phase 10's sequence, ``lk_track`` 2 launches a
+   frame, both of one frame's calls bit-identical to ``lk_track_plain``,
+   with its times, bound and chain beside the slack mode's; (b) the coarse
+   start (``coarse_init``, search 12, patch 9, the backward check over the
+   LK_FAR_BWD_LEVELS finest levels) on a sequence moving LK_FAR_SHIFT px a
+   frame, beyond the default walk's reach: ``lk_coarse_match`` 1 launch a
+   frame and ``lk_track`` 2, one frame's calls bit-identical to their
+   twins, the times, bounds and chains of both, and LK's share of the graph
+   frame from these three launches' device times; the default
+   parameters on the same sequence, printed, not bounded; (c) the fleet,
+   ``multi_camera_frontend_step`` on N_CAMERAS cameras of uint8 mono 720p
+   at the farm point, a keyframe call and a tracked call with each option:
+   the launches a call those of one camera's call, each camera against its
+   one-camera call by phase 13's rule.
 
 The enhanced image of a batched camera is held to the one-camera step's as
 the port's CPU tests hold it to the reference: the median and the 99.9th
@@ -279,7 +298,9 @@ under ``trilaterate``, their float64 and float32 launches, times and bounds
 there (operations at 34 TFLOP/s for float64, the H100 SXM's rate outside
 the tensor cores); ``sea_thru_fit``'s row carries its shapes under
 ``fits``, its row at B=4 under ``batched`` and the fleet's under
-``fleet``.
+``fleet``; ``lk_track``'s row carries its unbounded mode's launches,
+times and bound under ``unbounded`` (phase 20 (a)), and
+``lk_coarse_match``'s launches are those of phase 20 (b).
 
 Run: ``python chip_smoke.py`` (needs one GPU and nvcc; no network).
 """
@@ -387,6 +408,10 @@ SOURCES = {
     "lk_track": ("ocean_perception_tpu_torch/csrc/lk.cu",
                  "ocean_perception_tpu/ops/pallas/lk_prep.py:291 and "
                  "ocean_perception_tpu/ops/pallas/lk_iterate.py:160"),
+    # No TPU kernel: the JAX package runs its coarse block match in XLA.
+    "lk_coarse_match": ("ocean_perception_tpu_torch/csrc/lk_coarse.cu",
+                        "none (XLA's _coarse_block_match, ocean_perception_tpu/tracking/lk.py:190, "
+                        "and _coarse_block_match_ring, :978)"),
     # No TPU kernel: the JAX package leaves its LM's normal equations, solve
     # and sums to XLA.
     "lm_solve_small": ("ocean_perception_tpu_torch/csrc/lm_solve.cu",
@@ -444,21 +469,30 @@ CHASE_DIR = cuda._BUILD / "l2_chase"
 # shared load, two-tap products and sums over x then y (4), the residual
 # (1), the 2x2 step (2) and the new position (1).
 LK_STEP_CHAIN = 15
+# Operations of a step of the unbounded walk (csrc/lk.cu, walk_unbounded),
+# which the function needs once a patch row and once a patch column: the
+# tent centre (add, subtract, two clamps), its floor and its two tents
+# (subtract, absolute value, subtract, max each).
+LK_UNBOUNDED_LINE_OPS = 13
+# And once a patch element: the two-tap resampling (6 products, 3 sums), the
+# difference, its two products with the gradients and their two row sums.
+LK_UNBOUNDED_ELEMENT_OPS = 14
 
 
-def make_canvas() -> np.ndarray:
-    """Box-smoothed random canvas, 200 px wider than a frame (bench.py's recipe)."""
+def make_canvas(extra: int = 200) -> np.ndarray:
+    """Box-smoothed random canvas, ``extra`` px wider than a frame (bench.py's recipe)."""
     rng = np.random.default_rng(0)
-    canvas = rng.random((H, W + 200)).astype(np.float32)
+    canvas = rng.random((H, W + extra)).astype(np.float32)
     k = np.ones(5, np.float32) / 5
     canvas = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, canvas)
     return np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, canvas)
 
 
-def make_inputs(canvas: np.ndarray, i: int = 0) -> tuple[np.ndarray, np.ndarray]:
+def make_inputs(canvas: np.ndarray, i: int = 0,
+                shift: int = SHIFT) -> tuple[np.ndarray, np.ndarray]:
     """Frame i of the synthetic 720p stereo sequence:
-    left_i(y, x) = canvas(y, x + 100 + SHIFT*i), right_i(y, x - 8) == left_i(y, x)."""
-    x0 = 100 + SHIFT * i
+    left_i(y, x) = canvas(y, x + 100 + shift*i), right_i(y, x - 8) == left_i(y, x)."""
+    x0 = 100 + shift * i
     left = canvas[:, x0 : x0 + W]
     right = canvas[:, x0 + TRUE_DISP : x0 + TRUE_DISP + W]
     tint = np.array([0.35, 0.75, 0.9], np.float32)
@@ -467,12 +501,13 @@ def make_inputs(canvas: np.ndarray, i: int = 0) -> tuple[np.ndarray, np.ndarray]
     return left_rgb, right_rgb
 
 
-def make_mono_u8(canvas: np.ndarray, i: int, shape=None) -> tuple[np.ndarray, np.ndarray]:
+def make_mono_u8(canvas: np.ndarray, i: int, shape=None,
+                 shift: int = SHIFT) -> tuple[np.ndarray, np.ndarray]:
     """Frame i of the sequence as a farm camera sends it, uint8 mono: the
     canvas of make_inputs, scaled to [0.05, 0.95] and quantized; ``shape``
     (h, w) crops a smaller frame (default H, W)."""
     h, w = shape or (H, W)
-    x0 = 100 + SHIFT * i
+    x0 = 100 + shift * i
 
     def u8(a):
         return (np.clip(a[:h] * 0.9 + 0.05, 0, 1) * 255).astype(np.uint8)
@@ -497,8 +532,8 @@ def call_ms(fn, n: int = N_TIMED) -> float:
     return statistics.median(times)
 
 
-KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|pm_pass|lk_track|lm_solve_small|"
-                       r"lm_row_sum|sea_thru_fit)_kernel")
+KERNEL_RE = re.compile(r"(cost_volume|build_volumes|pm_match|pm_pass|lk_track|lk_coarse_match|"
+                       r"lm_solve_small|lm_row_sum|sea_thru_fit)_kernel")
 
 
 def launch_name(kernel: str) -> str | None:
@@ -1223,10 +1258,12 @@ def phase_engines_batched(engines: dict, canvas, results: dict, dev) -> None:
               + ", ".join(f"{v:.4f}" for _, v in accs) + f"; launches {launches}")
 
 
-def lk_bounds(call, steps: list) -> dict:
+def lk_bounds(call, steps: list, boxes: list) -> dict:
     """Bound of one lk_track launch (one direction, every level), from its
     recorded arguments and the steps each point took on each level (steps:
-    (level, (K,) steps) from lk_track_plain). Bytes: each point's template
+    (level, (K,) steps) from lk_track_plain; boxes: (level, (K, 2) rows and
+    columns of the box covering every window the unbounded walk read), from
+    it too). Bytes: each point's template
     and slack windows a level read, its point, guess and frame indices read,
     its point and status written. Operations (a multiply-add counted as
     two): the two-tap recentring, the gradients, the 5 window sums, the
@@ -1234,11 +1271,19 @@ def lk_bounds(call, steps: list) -> dict:
     chain of dependent operations: the coarsest level's window sums (row,
     then column), then on every level the win^2-long sum of a surface value
     and the most steps any point took times LK_STEP_CHAIN; the levels follow
-    one another, since each slack window sits at the coarser level's guess."""
+    one another, since each slack window sits at the coarser level's guess.
+
+    The unbounded walk (slack <= 0) has no slack window and no surfaces:
+    each point's search bytes a level are its box, read once (the walk
+    moves less than a pixel a step, and its windows overlap); a step
+    resamples, differences and sums a win^2 patch (LK_UNBOUNDED_LINE_OPS a
+    patch row and column, LK_UNBOUNDED_ELEMENT_OPS a patch element, 50 a
+    step); its chain is a step's two win-long sums and LK_STEP_CHAIN, times
+    the most steps any point took."""
     (tmpl_levels, _, points, *_), kwargs = call[1], call[2]
     # Points of every camera of a batch.
     K, slack, wins = points.shape[:-1].numel(), kwargs["slack"], kwargs["wins"]
-    taken = dict(steps)
+    taken, read = dict(steps), dict(boxes)
     nbytes, flops, chain = K * (4 * 2 * 2 + 4 * 2 + 4 * 2 + 1), 0, 0
     for lvl in range(len(tmpl_levels) - 1, -1, -1):
         win = wins[lvl]
@@ -1246,9 +1291,17 @@ def lk_bounds(call, steps: list) -> dict:
             continue
         ST, P, ws = win + 3, win + 2, win + 2 * (slack + 1)
         A = ws - win + 1
+        tmpl_flops = 3 * P * ST + 3 * P * P + 4 * win * win + 5 * 2 * win * win
+        if slack <= 0:
+            n_steps = int(taken[lvl].sum())
+            nbytes += K * 4 * ST * ST + 4 * int(read[lvl].long().prod(-1).sum())
+            flops += K * (tmpl_flops + 20) + n_steps * (
+                LK_UNBOUNDED_LINE_OPS * 2 * win + LK_UNBOUNDED_ELEMENT_OPS * win * win + 50)
+            chain += (2 * win if chain == 0 else 0)
+            chain += int(taken[lvl].max()) * (2 * win + LK_STEP_CHAIN)
+            continue
         nbytes += K * 4 * (ST * ST + ws * ws)
-        flops += K * (3 * P * ST + 3 * P * P + 4 * win * win + 5 * 2 * win * win
-                      + 2 * A * A * 2 * win * win + 20)
+        flops += K * (tmpl_flops + 2 * A * A * 2 * win * win + 20)
         flops += int(taken[lvl].sum()) * 50  # a step's tents, lookups, solve and test
         chain += (2 * win if chain == 0 else 0) + win * win
         chain += int(taken[lvl].max()) * LK_STEP_CHAIN
@@ -1256,30 +1309,60 @@ def lk_bounds(call, steps: list) -> dict:
                 chain_ms=1e3 * chain * OP_CYCLES / CLOCK_HZ)
 
 
+def coarse_bounds(call) -> dict:
+    """Bound of one lk_coarse_match launch, from its recorded arguments.
+    Bytes: each point's template and search window read, its point and
+    frame index read, its match written. Operations: a subtraction, a
+    product and a sum for each template pixel at each offset. Its chain: a
+    thread's offsets (one after another) of patch^2 dependent sums, then the
+    block's least (5 shuffle steps and the warps')."""
+    (_, _, points, _), kwargs = call[1], call[2]
+    K, s, p = points.shape[:-1].numel(), kwargs["search"], kwargs["patch"]
+    n, wn = 2 * s + 1, p + 2 * s
+    nbytes = K * (4 * (p * p + wn * wn) + 4 * 2 + 4 + 4 * 2)
+    flops = K * n * n * p * p * 3
+    chain = -(-n * n // 128) * p * p + 5 + 4
+    return dict(**bound(nbytes, flops), chain_ops=chain,
+                chain_ms=1e3 * chain * OP_CYCLES / CLOCK_HZ)
+
+
 def record_lk_calls(fn) -> list:
-    """Run fn() and return, for every lk_track call it made in order, (name,
-    args, kwargs, launch): the dispatcher's arguments, the exact inputs the
-    main path gives the kernel, for the plain twin; and the arguments the
-    dispatcher handed the kernel's wrapper, to time the kernel alone."""
+    """Run fn() and return, for every lk_track and coarse_block_match call
+    it made in order, (name, args, kwargs, launch): the dispatcher's
+    arguments, the exact inputs the main path gives the kernel, for the
+    plain twin; and the arguments the dispatcher handed the kernel's wrapper
+    (lk_track's, lk_coarse_match's), to time the kernel alone."""
     calls, launches = [], []
-    orig, wrapper = lk.lk_track, cuda.lk_track
+    spied = (("lk_track", "lk_track", "lk_track"),
+             ("lk_coarse_match", "coarse_block_match", "lk_coarse_match"))
+    saved = [(getattr(lk, fn_name), getattr(cuda, wrapper_name))
+             for _, fn_name, wrapper_name in spied]
 
-    def spy(*args, **kwargs):
-        calls.append(("lk_track", args, kwargs))
-        return orig(*args, **kwargs)
+    def spy(name, orig):
+        def call(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return orig(*args, **kwargs)
+        return call
 
-    def spy_wrapper(*args):
-        launches.append(args)
-        return wrapper(*args)
+    def spy_wrapper(name, wrapper):
+        def launch(*args):
+            launches.append((name, args))
+            return wrapper(*args)
+        return launch
 
     try:
-        lk.lk_track, cuda.lk_track = spy, spy_wrapper
+        for (name, fn_name, wrapper_name), (orig, wrapper) in zip(spied, saved):
+            setattr(lk, fn_name, spy(name, orig))
+            setattr(cuda, wrapper_name, spy_wrapper(name, wrapper))
         fn()
     finally:
-        lk.lk_track, cuda.lk_track = orig, wrapper
-    if len(launches) != len(calls):
-        raise AssertionError(f"{len(calls)} LK calls launched {len(launches)} kernels")
-    return [(*call, launch) for call, launch in zip(calls, launches)]
+        for (_, fn_name, wrapper_name), (orig, wrapper) in zip(spied, saved):
+            setattr(lk, fn_name, orig)
+            setattr(cuda, wrapper_name, wrapper)
+    if [c[0] for c in calls] != [name for name, _ in launches]:
+        raise AssertionError(f"LK calls {[c[0] for c in calls]} launched "
+                             f"{[name for name, _ in launches]}")
+    return [(*call, launch) for call, (_, launch) in zip(calls, launches)]
 
 
 def folded(launch: tuple) -> tuple:
@@ -1303,13 +1386,14 @@ def phase_lk_kernels(calls: list, tag: str = "lk") -> dict:
     launch): bit-identical; then each direction's times, bound and chain,
     and the Gauss-Newton steps the points took on each level (from the
     twin)."""
-    if [c[0] for c in calls] != ["lk_track"] * 2:
-        raise AssertionError(f"expected a forward and a backward lk_track, got {[c[0] for c in calls]}")
+    calls = [c for c in calls if c[0] == "lk_track"]
+    if len(calls) != 2:
+        raise AssertionError(f"expected a forward and a backward lk_track, got {len(calls)}")
     err, times, bounds = 0.0, [], []
     for direction, (name, args, kwargs, launch) in zip(("forward", "backward"), calls):
         got = lk.lk_track(*args, **kwargs)
-        steps = []
-        want = lk.lk_track_plain(*args, **kwargs, steps=steps)
+        steps, boxes = [], []
+        want = lk.lk_track_plain(*args, **kwargs, steps=steps, boxes=boxes)
         for a, b in zip(got, want):
             fa, fb = a.float().nan_to_num(-1e30), b.float().nan_to_num(-1e30)
             require_equal(f"lk_track {direction}", fa, fb)
@@ -1321,7 +1405,7 @@ def phase_lk_kernels(calls: list, tag: str = "lk") -> dict:
         flat = folded(launch)
         times.append(measure("lk_track", lambda: cuda.lk_track(*flat),
                              lambda: lk.lk_track_plain(*args, **kwargs), 5))
-        bounds.append(lk_bounds((name, args, kwargs), steps))
+        bounds.append(lk_bounds((name, args, kwargs), steps, boxes))
         b = bounds[-1]
         print(f"[{tag}] lk_track {direction} ({len(args[0])} levels, points "
               f"{tuple(args[2].shape[:-1])}): "
@@ -1370,12 +1454,24 @@ def print_syncs(tag: str, sites: list) -> None:
         print(f"[{tag}]   {n} x {site}")
 
 
-def phase_frontend(canvas, rig, config, dev) -> dict:
-    """full_frontend_step over the moving sequence: 4 warm-up frames fill the
-    ring (frame 0 is the first keyframe), frame 4 is recorded for the LK
-    kernel check, frames 5..12 are timed and checked."""
-    params = ObjectMesherDeviceParams()
-    frames = [tuple(torch.as_tensor(a, device=dev) for a in make_inputs(canvas, i))
+def track_error(a, c, shift: int) -> torch.Tensor:
+    """|x| and |y| error of every slot that one frontend frame tracked from
+    track table a to track table c, on a sequence whose features move -shift
+    px a frame (a slot missed m frames has moved (m + 1) * shift)."""
+    same = (a.ids >= 0) & (a.ids == c.ids) & (c.missed == 0)
+    moved = c.pixels[same] - a.pixels[same]
+    moved[:, 0] += shift * (a.missed[same].float() + 1)
+    return moved.abs().flatten()
+
+
+def phase_frontend(canvas, rig, config, dev, params=None, shift: int = SHIFT,
+                   per_frame: dict = PER_FRONTEND_FRAME, tag: str = "frontend") -> dict:
+    """full_frontend_step over the moving sequence (features move -shift px a
+    frame): 4 warm-up frames fill the ring (frame 0 is the first keyframe),
+    frame 4 is recorded for the LK kernel check, frames 5..12 are timed and
+    checked (launches per_frame a frame)."""
+    params = params or ObjectMesherDeviceParams()
+    frames = [tuple(torch.as_tensor(a, device=dev) for a in make_inputs(canvas, i, shift))
               for i in range(5 + N_FRAMES + 1)]
     state = StereoTrackerState.create(params.tracker, image_shape=(H, W), device=dev)
     graph = LandmarkGraph.create(params.tracker.capacity, device=dev)
@@ -1393,7 +1489,7 @@ def phase_frontend(canvas, rig, config, dev) -> dict:
         if i == 0:
             alive = int(out.tracker_state.table.alive.sum())
             if not (bool(out.mesher.is_keyframe) and alive >= 50):
-                raise AssertionError(f"first keyframe: {alive} landmarks alive")
+                raise AssertionError(f"{tag} first keyframe: {alive} landmarks alive")
     calls = record_lk_calls(lambda: step(4))
     torch.cuda.synchronize()
 
@@ -1419,45 +1515,41 @@ def phase_frontend(canvas, rig, config, dev) -> dict:
     launches = dict(cuda.LAUNCHES)
     ms_frame = start.elapsed_time(end) / N_FRAMES
 
-    require_launches("frontend", launches, PER_FRONTEND_FRAME, N_FRAMES)
+    require_launches(tag, launches, per_frame, N_FRAMES)
     errs, disps = [], []
     for k, out in enumerate(outs):
         for field, t in (*out.perception._asdict().items(),
                          *((f, v) for f, v in out.mesher._asdict().items() if v.is_floating_point())):
             if not torch.isfinite(t).all():
-                raise AssertionError(f"frontend frame {k}: non-finite {field}")
-        a, b = before[k].table, before[k + 1].table
-        same = (a.ids >= 0) & (a.ids == b.ids) & (b.missed == 0)
-        moved = b.pixels[same] - a.pixels[same]
-        moved[:, 0] += SHIFT * (a.missed[same].float() + 1)
-        errs.append(moved.abs().flatten())
+                raise AssertionError(f"{tag} frame {k}: non-finite {field}")
+        errs.append(track_error(before[k].table, before[k + 1].table, shift))
         d = out.mesher.disparities[out.tracker_state.table.alive]
         disps.append(d[d > 0] - TRUE_DISP)
     errs, disps = torch.cat(errs), torch.cat(disps)
     med_err, med_disp = float(errs.median()), float(disps.abs().median())
     alive = int(outs[-1].tracker_state.table.alive.sum())
     clusters = int((outs[-1].mesher.sizes >= 3).sum())
-    print(f"[frontend] {N_FRAMES} frames: {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps), "
+    print(f"[{tag}] {N_FRAMES} frames: {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps), "
           f"host {1000.0 * wall:.3f} ms/frame, median |track error| {med_err:.5f} px over "
           f"{errs.numel() // 2} tracks, median |stripe disp - {TRUE_DISP}| {med_disp:.4f} px over "
           f"{disps.numel()} matches, {alive} alive, {clusters} clusters of >= 3, "
           f"digest {float(digest):.6e}, launches {launches}")
     if not med_err < 0.1:
-        raise AssertionError(f"median |track error| {med_err} px")
+        raise AssertionError(f"{tag}: median |track error| {med_err} px")
     if not med_disp < 0.5:
-        raise AssertionError(f"median |stripe disparity - {TRUE_DISP}| {med_disp} px")
+        raise AssertionError(f"{tag}: median |stripe disparity - {TRUE_DISP}| {med_disp} px")
     if alive < 50:
-        raise AssertionError(f"{alive} landmarks alive")
+        raise AssertionError(f"{tag}: {alive} landmarks alive")
 
     sites = sync_sites(lambda: step(5 + N_FRAMES))
     torch.cuda.synchronize()
-    print_syncs("frontend", sites)
+    print_syncs(tag, sites)
     if len(sites) > FRONTEND_SYNCS:
-        raise AssertionError(f"frontend: {len(sites)} host syncs a frame, more than the "
+        raise AssertionError(f"{tag}: {len(sites)} host syncs a frame, more than the "
                              f"{FRONTEND_SYNCS} PERF.md names")
     return dict(launches=launches, calls=calls, ms_frame=ms_frame, frames=frames, params=params,
                 state=before[-2], graph=outs[-2].graph, prev=to_grayscale(frames[4 + N_FRAMES - 1][0]),
-                out=outs[-1], start=start_state, first=outs[0])
+                out=outs[-1], start=start_state, first=outs[0], med_err=med_err, alive=alive)
 
 
 def _map_tensors(fn, obj):
@@ -1478,6 +1570,11 @@ def _tensors(obj) -> list:
     out = []
     _map_tensors(out.append, obj)
     return out
+
+
+def camera(obj, b: int):
+    """Camera b of a fleet's tensor tree (each tensor's leading axis)."""
+    return _map_tensors(lambda t: t[b], obj)
 
 
 def frontend_graph(step, start, frames, first, last, tag: str) -> float:
@@ -1539,19 +1636,22 @@ def frontend_graph(step, start, frames, first, last, tag: str) -> float:
     return ms_frame
 
 
-def phase_frontend_graph(fe, rig, config, lk_device_ms: float) -> float:
+def phase_frontend_graph(fe, rig, config, lk_device_ms: float,
+                         tag: str = "frontend graph",
+                         lk_launches: str = "2 lk_track launches") -> float:
     """full_frontend_step as one CUDA graph a frame (frontend_graph) over the
     timed frames of phase_frontend, from the same start; prints LK's share
-    of the replayed frame. Returns the replay's ms/frame."""
+    of the replayed frame, lk_device_ms for the lk_launches of a frame.
+    Returns the replay's ms/frame."""
     dev = fe["start"][2].device
 
     def step(st, gr, prev, left, right):
         return full_frontend_step(st, gr, prev, left, right, rig, config, fe["params"], device=dev)
 
     ms_frame = frontend_graph(step, fe["start"], fe["frames"][5:5 + N_FRAMES], fe["first"],
-                              fe["out"], "frontend graph")
-    print(f"[frontend graph] {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps) against "
-          f"{fe['ms_frame']:.3f} ms/frame by calls; LK (2 lk_track launches, "
+                              fe["out"], tag)
+    print(f"[{tag}] {ms_frame:.3f} ms/frame ({1000.0 / ms_frame:.1f} fps) against "
+          f"{fe['ms_frame']:.3f} ms/frame by calls; LK ({lk_launches}, "
           f"{1e3 * lk_device_ms:.3f} us) {100.0 * lk_device_ms / ms_frame:.2f}% of the frame")
     return ms_frame
 
@@ -2256,16 +2356,96 @@ def phase_batched(canvas, rig, config, rows: dict, l2: dict) -> dict:
     return krows
 
 
+def require_camera_equal(tag: str, out, b: int, o1, left_f, config) -> tuple:
+    """Camera b of a fleet frontend call, out, against its one-camera
+    full_frontend_step o1 on its frame left_f (phase 13's rule): disparity,
+    depth, labels, slot ids and alive set equal, pixels within 1e-3 px on 99%
+    of alive slots, the enhanced image within the enhance tolerance. Returns
+    whether the pixels, the stripe disparities and the enhanced image are
+    bit-identical."""
+    nudged, _ = enhance_underwater(left_f * float(np.float32(1 + 2.0**-23)),
+                                   o1.perception.depth, config.enhance)
+    require_enhance_close(f"{tag} enhanced image", out.perception.enhanced_left[b],
+                          o1.perception.enhanced_left, nudged)
+    require_equal(f"{tag} disparity map vs one camera's", out.perception.disparity[b],
+                  o1.perception.disparity)
+    require_equal(f"{tag} depth vs one camera's", out.perception.depth[b], o1.perception.depth)
+    require_equal(f"{tag} labels vs one camera's", out.mesher.labels[b], o1.mesher.labels)
+    require_equal(f"{tag} slot ids vs one camera's", out.tracker_state.table.ids[b],
+                  o1.tracker_state.table.ids)
+    require_equal(f"{tag} alive vs one camera's", out.mesher.alive[b], o1.mesher.alive)
+    alive = o1.mesher.alive
+    dpx = (out.tracker_state.table.pixels[b] - o1.tracker_state.table.pixels)[alive]
+    close = float((dpx.abs().amax(-1) <= 1e-3).float().mean()) if alive.any() else 1.0
+    if close < 0.99:
+        raise AssertionError(f"{tag}: pixels within 1e-3 px on {close} of alive slots")
+    return (torch.equal(out.tracker_state.table.pixels[b], o1.tracker_state.table.pixels),
+            torch.equal(out.mesher.disparities[b], o1.mesher.disparities),
+            torch.equal(out.perception.enhanced_left[b], o1.perception.enhanced_left))
+
+
+def fleet_frames(canvas, n: int, phase: int, dev, shift: int = SHIFT) -> list:
+    """n calls' uint8 mono frames of N_CAMERAS cameras, (left, right) each
+    (B, H, W): camera b's frame i is frame i + phase * b of the sequence
+    moving -shift px a frame."""
+    frames = []
+    for i in range(n):
+        pairs = [make_mono_u8(canvas, i + phase * b, shift=shift) for b in range(N_CAMERAS)]
+        frames.append(tuple(torch.as_tensor(np.stack(side), device=dev) for side in zip(*pairs)))
+    return frames
+
+
+def fleet_camera_alone(tag: str, b: int, frames: list, outs: list, prev0, rig, config, params,
+                       dev, per_call: dict | None = None) -> dict:
+    """Camera b of the fleet calls outs, made on the last len(outs) of
+    frames (fleet_frames) from the previous grays prev0, against camera b
+    alone: its uint8 mono frames through full_frontend_step from a new
+    state and prev0[b] over every frame, each call launching per_call where
+    given, each compared call held to phase 13's rule (require_camera_equal).
+    Returns the state before the first compared call (start), the compared
+    calls' outputs (singles) and their ms a call by calls (ms_call), the
+    counts of compared calls whose pixels, stripe disparities and enhanced
+    image are bit-identical (exact), and the max |enhanced| batched and
+    alone (enh_max)."""
+    first = len(frames) - len(outs)
+    st1 = StereoTrackerState.create(params.tracker, image_shape=(H, W), device=dev)
+    gr1 = LandmarkGraph.create(params.tracker.capacity, device=dev)
+    prev1, singles = prev0[b], []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i, (left, right) in enumerate(frames):
+        if i == first:
+            start = (st1, gr1, prev1)
+            e0.record()
+        if per_call is not None:
+            cuda.reset_launches()
+        o1, prev1 = full_frontend_step(st1, gr1, prev1, prepare_frames(left[b][None], dev)[0],
+                                       prepare_frames(right[b][None], dev)[0], rig, config,
+                                       params, device=dev)
+        if per_call is not None:
+            require_launches(f"{tag} B=1 camera {b} call {i}", dict(cuda.LAUNCHES), per_call, 1)
+        st1, gr1 = o1.tracker_state, o1.graph
+        if i >= first:
+            singles.append(o1)
+    e1.record()
+    e1.synchronize()
+    exact, enh_max = [0, 0, 0], [0.0, 0.0]
+    for k, (out, o1) in enumerate(zip(outs, singles)):
+        left_f = prepare_frames(frames[first + k][0][b][None], dev)[0]
+        same = require_camera_equal(f"{tag} camera {b} call {k}", out, b, o1, left_f, config)
+        exact = [e + x for e, x in zip(exact, same)]
+        enh_max = [max(enh_max[0], float(out.perception.enhanced_left[b].abs().max())),
+                   max(enh_max[1], float(o1.perception.enhanced_left.abs().max()))]
+    return dict(start=start, singles=singles, ms_call=e0.elapsed_time(e1) / len(singles),
+                exact=exact, enh_max=enh_max)
+
+
 def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
     """The fleet frontend (see the module docstring, phase 13); returns
     lk_track's row at N_CAMERAS cameras, with its launches a call."""
     B = N_CAMERAS
     config = PerceptionConfig(engine="patchmatch", max_disp=MAX_DISP, internal_scale=FARM_SCALE)
     params = ObjectMesherDeviceParams()
-    frames = []
-    for i in range(5 + N_FRAMES + 1):
-        pairs = [make_mono_u8(canvas, i + FLEET_PHASE * b) for b in range(B)]
-        frames.append(tuple(torch.as_tensor(np.stack(side), device=dev) for side in zip(*pairs)))
+    frames = fleet_frames(canvas, 5 + N_FRAMES + 1, FLEET_PHASE, dev)
 
     def fleet_step(st, gr, prev, left, right):
         return multi_camera_frontend_step(st, gr, prev, left, right, rig, config, params,
@@ -2348,11 +2528,8 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
                                if v.is_floating_point())):
                 if not torch.isfinite(t[b]).all():
                     raise AssertionError(f"fleet camera {b} call {k}: non-finite {field}")
-            a, c = before[k].table, before[k + 1].table
-            same = (a.ids[b] >= 0) & (a.ids[b] == c.ids[b]) & (c.missed[b] == 0)
-            moved = c.pixels[b][same] - a.pixels[b][same]
-            moved[:, 0] += SHIFT * (a.missed[b][same].float() + 1)
-            errs.append(moved.abs().flatten())
+            errs.append(track_error(camera(before[k].table, b), camera(before[k + 1].table, b),
+                                    SHIFT))
             d = out.mesher.disparities[b][out.tracker_state.table.alive[b]]
             disps.append(d[d > 0] - TRUE_DISP)
         errs, disps = torch.cat(errs), torch.cat(disps)
@@ -2366,55 +2543,15 @@ def phase_fleet(canvas, rig, rows: dict, dev) -> dict:
             raise AssertionError(f"fleet {lines[-1]}")
 
     # Each camera against its one-camera full_frontend_step on the card.
-    start_1 = outs_1 = None
     ms_call_1 = []  # each camera's one-camera calls, by calls
     for b in range(B):
-        st1 = StereoTrackerState.create(params.tracker, image_shape=(H, W), device=dev)
-        gr1 = LandmarkGraph.create(params.tracker.capacity, device=dev)
-        prev1, singles = prev0[b], []
-        for i in range(5 + N_FRAMES):
-            if i == 5:
-                start_1 = start_1 or (st1, gr1, prev1)
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-            o1, prev1 = one_step(st1, gr1, prev1, frames[i][0][b], frames[i][1][b])
-            st1, gr1 = o1.tracker_state, o1.graph
-            if i >= 5:
-                singles.append(o1)
-        e1.record()
-        e1.synchronize()
-        ms_call_1.append(e0.elapsed_time(e1) / N_FRAMES)
-        exact_px = exact_disp = exact_enh = 0
-        enh_max = [0.0, 0.0]  # max |enhanced| over the calls, batched and one camera
-        for k, (out, o1) in enumerate(zip(outs, singles)):
-            tag = f"fleet camera {b} call {k}"
-            left_f = prepare_frames(frames[5 + k][0][b][None], dev)[0]
-            nudged, _ = enhance_underwater(left_f * float(np.float32(1 + 2.0**-23)),
-                                           o1.perception.depth, config.enhance)
-            require_enhance_close(f"{tag} enhanced image", out.perception.enhanced_left[b],
-                                  o1.perception.enhanced_left, nudged)
-            require_equal(f"{tag} disparity map vs one camera's", out.perception.disparity[b],
-                          o1.perception.disparity)
-            require_equal(f"{tag} depth vs one camera's", out.perception.depth[b],
-                          o1.perception.depth)
-            require_equal(f"{tag} labels vs one camera's", out.mesher.labels[b], o1.mesher.labels)
-            require_equal(f"{tag} slot ids vs one camera's", out.tracker_state.table.ids[b],
-                          o1.tracker_state.table.ids)
-            require_equal(f"{tag} alive vs one camera's", out.mesher.alive[b], o1.mesher.alive)
-            alive = o1.mesher.alive
-            dpx = (out.tracker_state.table.pixels[b] - o1.tracker_state.table.pixels)[alive]
-            close = float((dpx.abs().amax(-1) <= 1e-3).float().mean()) if alive.any() else 1.0
-            if close < 0.99:
-                raise AssertionError(f"{tag}: pixels within 1e-3 px on {close} of alive slots")
-            exact_px += torch.equal(out.tracker_state.table.pixels[b],
-                                    o1.tracker_state.table.pixels)
-            exact_disp += torch.equal(out.mesher.disparities[b], o1.mesher.disparities)
-            exact_enh += torch.equal(out.perception.enhanced_left[b], o1.perception.enhanced_left)
-            enh_max = [max(enh_max[0], float(out.perception.enhanced_left[b].abs().max())),
-                       max(enh_max[1], float(o1.perception.enhanced_left.abs().max()))]
+        a = fleet_camera_alone("fleet", b, frames[:5 + N_FRAMES], outs, prev0, rig, config,
+                               params, dev)
         if b == 0:
-            outs_1 = singles
-        lines[b] += (f"; against its one-camera full_frontend_step ({ms_call_1[-1]:.3f} ms a "
+            start_1, outs_1 = a["start"], a["singles"]
+        ms_call_1.append(a["ms_call"])
+        (exact_px, exact_disp, exact_enh), enh_max = a["exact"], a["enh_max"]
+        lines[b] += (f"; against its one-camera full_frontend_step ({a['ms_call']:.3f} ms a "
                      f"call by calls): disparity map, depth, labels, slot ids and alive set "
                      f"equal in {N_FRAMES} of {N_FRAMES} calls, pixels bit-identical in "
                      f"{exact_px}, stripe disparities bit-identical in {exact_disp}; enhanced "
@@ -4213,6 +4350,132 @@ def phase_fiducial(dev, smi: str) -> None:
                              f"snapped {snapped} m")
 
 
+LK_FAR_SHIFT = 40  # phase 20 (b): features move -40 px a frame, 5 px at level 3
+# Phase 20 (b)'s backward check: the 2 finest levels from the round-trip
+# target (LKParams.bwd_levels). The coarse start seeds only the forward
+# walk; a backward walk over every level from zero motion cannot reach 5 px
+# at level 3 either, and would fail every track (JAX's tracker alike).
+LK_FAR_BWD_LEVELS = 2
+
+
+def lk_option_params(**lk_fields) -> ObjectMesherDeviceParams:
+    """The frontend's default parameters with these LKParams fields."""
+    base = ObjectMesherDeviceParams()
+    lkp = dataclasses.replace(base.tracker.lk, **lk_fields)
+    return dataclasses.replace(base, tracker=dataclasses.replace(base.tracker, lk=lkp))
+
+
+def phase_coarse_kernel(calls: list, tag: str) -> dict:
+    """lk_coarse_match against its twin on one frame's recorded call
+    (bit-identical), then its times, bound and chain."""
+    calls = [c for c in calls if c[0] == "lk_coarse_match"]
+    if len(calls) != 1:
+        raise AssertionError(f"{tag}: expected one lk_coarse_match a frame, got {len(calls)}")
+    name, args, kwargs, launch = calls[0]
+    got = lk.coarse_block_match(*args, **kwargs).nan_to_num(-1e30)
+    want = lk.coarse_block_match_plain(*args, **kwargs).nan_to_num(-1e30)
+    require_equal(f"{tag} lk_coarse_match", got, want)
+    times = measure("lk_coarse_match", lambda: cuda.lk_coarse_match(*launch),
+                    lambda: lk.coarse_block_match_plain(*args, **kwargs), 5)
+    b = coarse_bounds(calls[0])
+    row = dict(max_abs_err=max_abs(got, want), **summarize([times]), **b)
+    print(f"[{tag}] lk_coarse_match (points {tuple(args[2].shape[:-1])}, level "
+          f"{tuple(args[1].shape[-2:])}, search {kwargs['search']}, patch {kwargs['patch']}): "
+          f"bit-identical to its twin; {times_line(row)}; bound {b['bound_ms']:.5f} ms "
+          f"({b['bound_by']}), chain of {b['chain_ops']} dependent operations "
+          f"({b['chain_ms']:.5f} ms); no single PyTorch call computes the match")
+    return row
+
+
+def lk_option_fleet(canvas, rig, params, shift: int, phase: int, per_call: dict,
+                    tag: str, dev) -> None:
+    """multi_camera_frontend_step on N_CAMERAS cameras of uint8 mono 720p
+    frames at the farm point (fleet_frames(canvas, 2, phase, dev, shift)): a
+    keyframe call, then a tracked one, each launching per_call, as one
+    camera's call does; each camera against its one-camera
+    full_frontend_step (fleet_camera_alone, phase 13's rule)."""
+    B = N_CAMERAS
+    config = PerceptionConfig(engine="patchmatch", max_disp=MAX_DISP, internal_scale=FARM_SCALE)
+    frames = fleet_frames(canvas, 2, phase, dev, shift)
+    state, graph = create_fleet_frontend_state(B, params, image_shape=(H, W), device=dev)
+    prev = to_grayscale(prepare_frames(frames[0][0], dev))
+    prev0, outs = prev, []
+    for i, (left, right) in enumerate(frames):
+        cuda.reset_launches()
+        out, prev = multi_camera_frontend_step(state, graph, prev, left, right, rig, config,
+                                               params, device=dev)
+        require_launches(f"{tag} B={B} call {i}", dict(cuda.LAUNCHES), per_call, 1)
+        state, graph = out.tracker_state, out.graph
+        outs.append(out)
+    alive = outs[-1].tracker_state.table.alive.sum(-1).tolist()
+    exact = [fleet_camera_alone(tag, b, frames, outs, prev0, rig, config, params, dev,
+                                per_call)["exact"] for b in range(B)]
+    px, disp, enh = (sum(e[j] for e in exact) for j in range(3))
+    n = B * len(outs)
+    print(f"[{tag}] B={B} uint8 mono at internal_scale={FARM_SCALE}, 2 calls: launches a call "
+          f"{per_call} at B={B} and at B=1; alive after the tracked call {alive}; every camera's "
+          f"disparity map, depth, labels, slot ids and alive set equal to its one-camera call "
+          f"in {n} of {n} calls, pixels bit-identical in {px}, stripe "
+          f"disparities in {disp}, enhanced image in {enh} (within the enhance tolerance in all)")
+    if min(alive) < 50:
+        raise AssertionError(f"{tag}: {alive} landmarks alive")
+
+
+def phase_lk_options(rig, config, dev, rows: dict) -> tuple[dict, dict]:
+    """Phase 20: the LK tracker's two options on the frontend at 720p (see
+    the module docstring). Returns lk_track's row in the unbounded mode and
+    lk_coarse_match's, each with its launches on its path."""
+    t0 = time.perf_counter()
+    slack_row = rows["lk_track"]
+
+    # (a) the unbounded walk on phase 10's sequence.
+    p_a = lk_option_params(search_slack=0)
+    fe_a = phase_frontend(make_canvas(), rig, config, dev, p_a, tag="lk unbounded")
+    row_a = phase_lk_kernels(fe_a["calls"], "lk unbounded")["lk_track"]
+    print(f"[lk unbounded] lk_track in the unbounded mode: device "
+          f"{row_a['device_ms'] * 1e3:.3f} us a launch ({row_a['device_method']}) against {slack_row['device_ms'] * 1e3:.3f} us in "
+          f"the slack mode (phase 9); bound {row_a['bound_ms'] * 1e3:.3f} us "
+          f"({row_a['bound_by']}) against {slack_row['bound_ms'] * 1e3:.3f}; chain "
+          f"{row_a['chain_ms'] * 1e3:.3f} us against {slack_row['chain_ms'] * 1e3:.3f}")
+    phase_frontend_graph(fe_a, rig, config, 2 * row_a["device_ms"], "lk unbounded graph",
+                         "2 lk_track launches in the unbounded mode")
+
+    # (b) the coarse start on a sequence moving LK_FAR_SHIFT px a frame.
+    wide = make_canvas(100 + LK_FAR_SHIFT * (5 + N_FRAMES) + TRUE_DISP)
+    p_b = lk_option_params(coarse_init=True, bwd_levels=LK_FAR_BWD_LEVELS)
+    per_b = dict(PER_FRONTEND_FRAME, lk_coarse_match=1)
+    fe_b = phase_frontend(wide, rig, config, dev, p_b, LK_FAR_SHIFT, per_b, "lk coarse")
+    track_b = phase_lk_kernels(fe_b["calls"], "lk coarse")["lk_track"]
+    row_b = phase_coarse_kernel(fe_b["calls"], "lk coarse")
+    phase_frontend_graph(fe_b, rig, config, 2 * track_b["device_ms"] + row_b["device_ms"],
+                         "lk coarse graph", "2 lk_track launches and 1 lk_coarse_match")
+    # The default parameters on the same sequence: recorded, not bounded.
+    base = ObjectMesherDeviceParams()
+    state = StereoTrackerState.create(base.tracker, image_shape=(H, W), device=dev)
+    graph = LandmarkGraph.create(base.tracker.capacity, device=dev)
+    prev = to_grayscale(fe_b["frames"][0][0])
+    errs = []
+    for left, right in fe_b["frames"][:5 + N_FRAMES]:
+        out, prev = full_frontend_step(state, graph, prev, left, right, rig, config, base,
+                                       device=dev)
+        errs.append(track_error(state.table, out.tracker_state.table, LK_FAR_SHIFT))
+        state, graph = out.tracker_state, out.graph
+    errs = torch.cat(errs)
+    print(f"[lk coarse] the default parameters (no coarse start, full backward check) on the "
+          f"same sequence: {errs.numel() // 2} tracks over {5 + N_FRAMES} frames, median |track "
+          f"error| {float(errs.median()) if errs.numel() else float('nan'):.5f} px, "
+          f"{int(state.table.alive.sum())} alive (recorded, not bounded); with the coarse start: "
+          f"median {fe_b['med_err']:.5f} px, {fe_b['alive']} alive")
+
+    # (c) the fleet, each option.
+    lk_option_fleet(make_canvas(), rig, p_a, SHIFT, FLEET_PHASE, PER_FRONTEND_FRAME,
+                    "lk unbounded fleet", dev)
+    lk_option_fleet(wide, rig, p_b, LK_FAR_SHIFT, 1, per_b, "lk coarse fleet", dev)
+    print(f"[lk options] phase 20 in {time.perf_counter() - t0:.1f} s")
+    return (dict(row_a, launches=fe_a["launches"]["lk_track"], frames=N_FRAMES),
+            dict(row_b, launches=fe_b["launches"]["lk_coarse_match"], frames=N_FRAMES))
+
+
 def main() -> int:
     name, smi = phase_device()
     phase_build()
@@ -4261,12 +4524,17 @@ def main() -> int:
     deploy = phase_vio_deploy(dev, mission)
     sharded = phase_sharded(canvas, rig, config, dev)
     phase_fiducial(dev, smi)
+    unbounded, rows["lk_coarse_match"] = phase_lk_options(rig, config, dev, rows)
 
     # Launches on each kernel's own path: cost_volume's and pm_match's from
     # perception_step, build_volumes' and pm_match_strip's from
     # perception_step with strip volumes, LK's from full_frontend_step.
     launches.update({k: strip_launches[k] for k in PER_STRIP_FRAME})
     launches["lk_track"] = fe["launches"]["lk_track"]
+    # lk_coarse_match's, from full_frontend_step with the coarse start
+    # (phase 20 (b)); lk_track's unbounded mode's beside its row (phase 20 (a)).
+    launches["lk_coarse_match"] = rows["lk_coarse_match"].pop("launches")
+    rows["lk_track"]["unbounded"] = unbounded
     # The batched path's numbers beside each stereo kernel's row (phase 12).
     for k, row in batched.items():
         rows[k]["batched"] = dict(cameras=N_CAMERAS, **row)

@@ -42,6 +42,20 @@
 //   operation turns into a value. The kernel takes the two-tap form when
 //   every value it would drop is at most kTwoTapMax in magnitude (so that no
 //   partial sum can overflow either), else the twin's full sums.
+//
+// slack <= 0 selects the unbounded walk of the reference (its
+// search_slack <= 0, which the JAX package runs in XLA: tracking/lk.py,
+// _lk_level's else branch). Its twin's walk is
+// tracking/lk.py::lk_walk_unbounded_plain. Phase A is the same; Phase B
+// walks each level without surfaces: every step reads the (win+2)^2 window
+// at the position into shared memory, resamples the win x win patch there
+// (two taps an axis under the same guard, else the twin's full sums), forms
+// diff*gx and diff*gy a thread an element, sums each row on a thread and
+// the rows on thread 0, which takes the step and hands the position to the
+// block. A step is a chain of a load, three barriers and two sums of win
+// terms; the walk stops once the point has converged (a converged point
+// never moves again, so this is the twin's fixed loop). Nothing leaves a
+// window, so the level update has no hit flag.
 
 #include <cuda_runtime.h>
 
@@ -124,6 +138,22 @@ __host__ __device__ inline Dims dims(int win, int slack) {
   return d;
 }
 
+// The unbounded walk's scratch at window win (slack 0: ws = win + 2): the
+// (2, win, win) products diff*gx and diff*gy, their (2, win) row sums, and
+// the (win, ws) first contraction of the full sums.
+__host__ __device__ inline int walk_prod(int win) { return up4(2 * win * win); }
+__host__ __device__ inline int walk_rows(int win) { return up4(2 * win); }
+
+int walk_floats(const Track& t) {
+  int n = 0;
+  for (int l = 0; l < t.levels; ++l) {
+    const int win = t.lv[l].win;
+    const int need = walk_prod(win) + walk_rows(win) + up4(win * (win + 2));
+    if (win && need > n) n = need;
+  }
+  return n;
+}
+
 Layout layout(const Track& t) {
   Layout L = {};
   int o = 0, swin = 0;
@@ -140,7 +170,8 @@ Layout layout(const Track& t) {
   }
   const int A = 2 * t.slack + 3;
   L.swin = o; o += up4(swin);
-  L.corr = o; o += up4(2 * A * A);
+  // The unbounded walk's scratch (walk_unbounded) takes the surfaces' place.
+  L.corr = o; o += t.slack > 0 ? up4(2 * A * A) : walk_floats(t);
   L.total = o;
   return L;
 }
@@ -174,10 +205,14 @@ __device__ __forceinline__ TmplPos tmpl_pos(const Track& t, const LevelArgs& lv,
   return p;
 }
 
+// Tent centre of a resampled row (or column) p: clip((f + p) - half, 0, last).
+__device__ __forceinline__ float centre(float f, int p, int half, int last) {
+  return fminf(fmaxf(__fsub_rn(__fadd_rn(f, (float)p), (float)half), 0.f), (float)last);
+}
+
 // Tent centre of recentring row (or column) p: clip(f + p - P/2, 0, ST-1).
 __device__ __forceinline__ float tent_centre(float f, int p, const Dims& d) {
-  return fminf(fmaxf(__fsub_rn(__fadd_rn(f, (float)p), (float)(d.P / 2)), 0.f),
-               (float)(d.ST - 1));
+  return centre(f, p, d.P / 2, d.ST - 1);
 }
 
 // An n x n window of img (H, W), its top-left at (y0, x0) - pad, clamped to
@@ -338,6 +373,132 @@ __device__ void walk(const float* __restrict__ corr, const float* __restrict__ s
   }
 }
 
+// Phase B of the unbounded walk, every level coarse to fine, from the guess
+// in s_guess; leaves the point and its status in thread 0's gx, gy and ok.
+__device__ void walk_unbounded(const Track& t, const Layout& L, const LevelArgs* lp, float* sm,
+                               float* s_guess, int k, float& gx, float& gy, bool& ok) {
+  __shared__ int s_conv;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* swin = sm + L.swin;
+  __syncthreads();  // Phase A's inverses and gates (A6), even where no step runs
+  for (int l = t.levels - 1; l >= 0; --l) {
+    const LevelArgs& lv = lp[l];
+    if (lv.win) {
+      const Dims d = dims(lv.win, 0);  // ws = win + 2
+      const int win = d.win, r = d.r, ws = d.ws;
+      const int Hp = lv.H + 2 * t.pad, Wp = lv.W + 2 * t.pad;
+      const float* S = lv.srch + (size_t)clampi(t.src_s[k], 0, lv.Rs - 1) * lv.H * lv.W;
+      const float* t2 = sm + lv.t2;
+      const float* G = sm + lv.G;
+      const float* sc = sm + lv.scal;
+      float* prod = sm + L.corr;
+      float* rsum = prod + walk_prod(win);
+      float* t1 = rsum + walk_rows(win);
+      float px = s_guess[0], py = s_guess[1];
+      bool conv = false;
+      for (int it = 0; it < t.max_iters && !conv; ++it) {
+        // A non-finite position reads the window at 0 (and stays non-finite).
+        const float cpx = clean(px), cpy = clean(py);
+        const int y0 = origin(cpy, r + 1 - t.pad, Hp - ws);
+        const int x0 = origin(cpx, r + 1 - t.pad, Wp - ws);
+        bool small_all = true;
+        fetch_window(S, lv.H, lv.W, y0, x0, ws, t.pad, swin, d.SW, small_all);
+        const bool two_tap = __syncthreads_and(small_all);
+        const float cy = __fsub_rn(__fadd_rn(cpy, (float)t.pad), (float)y0);
+        const float cx = __fsub_rn(__fadd_rn(cpx, (float)t.pad), (float)x0);
+        if (two_tap) {
+          for (int e = tid; e < win * win; e += nt) {
+            const int i = e / win, j = e % win;
+            const float ci = centre(cy, i, r, ws - 1), cj = centre(cx, j, r, ws - 1);
+            const int a0 = (int)ci, b0 = (int)cj;
+            // The second tap's row (column), or the first's where the window
+            // ends (its weight is then 0, and the value it multiplies finite).
+            const int da = a0 + 1 < ws ? d.SW : 0, db = b0 + 1 < ws ? 1 : 0;
+            const float wy0 = tent(ci, a0), wy1 = tent(ci, a0 + 1);
+            const float wx0 = tent(cj, b0), wx1 = tent(cj, b0 + 1);
+            const float* r0 = swin + a0 * d.SW + b0;
+            const float u0 = __fadd_rn(__fmul_rn(wy0, r0[0]), __fmul_rn(wy1, r0[da]));
+            const float u1 = __fadd_rn(__fmul_rn(wy0, r0[db]), __fmul_rn(wy1, r0[da + db]));
+            const float v = __fadd_rn(__fmul_rn(u0, wx0), __fmul_rn(u1, wx1));
+            const float diff = __fsub_rn(v, t2[(i + 1) * d.P + j + 1]);
+            const float2 g = reinterpret_cast<const float2*>(G + i * d.GS)[j];
+            prod[e] = __fmul_rn(diff, g.x);
+            prod[win * win + e] = __fmul_rn(diff, g.y);
+          }
+        } else {
+          // The twin's full sums: over the rows, then over the columns.
+          for (int e = tid; e < win * ws; e += nt) {
+            const int i = e / ws, b = e % ws;
+            const float ci = centre(cy, i, r, ws - 1);
+            float acc = 0.f;
+            for (int a = 0; a < ws; ++a)
+              acc = __fadd_rn(acc, __fmul_rn(tent(ci, a), swin[a * d.SW + b]));
+            t1[e] = acc;
+          }
+          __syncthreads();
+          for (int e = tid; e < win * win; e += nt) {
+            const int i = e / win, j = e % win;
+            const float cj = centre(cx, j, r, ws - 1);
+            float acc = 0.f;
+            for (int b = 0; b < ws; ++b)
+              acc = __fadd_rn(acc, __fmul_rn(t1[i * ws + b], tent(cj, b)));
+            const float diff = __fsub_rn(acc, t2[(i + 1) * d.P + j + 1]);
+            const float2 g = reinterpret_cast<const float2*>(G + i * d.GS)[j];
+            prod[e] = __fmul_rn(diff, g.x);
+            prod[win * win + e] = __fmul_rn(diff, g.y);
+          }
+        }
+        __syncthreads();
+        // Each row of diff*gx (rows 0..win-1) and diff*gy, left to right.
+        for (int y = tid; y < 2 * win; y += nt) {
+          const float* row = prod + y * win;
+          float acc = 0.f;
+          for (int x = 0; x < win; ++x) acc = __fadd_rn(acc, row[x]);
+          rsum[y] = acc;
+        }
+        __syncthreads();
+        if (tid == 0) {
+          float bx = 0.f, by = 0.f;
+          for (int y = 0; y < win; ++y) {
+            bx = __fadd_rn(bx, rsum[y]);
+            by = __fadd_rn(by, rsum[win + y]);
+          }
+          const float dx = -__fadd_rn(__fmul_rn(sc[2], bx), __fmul_rn(sc[3], by));
+          const float dy = -__fadd_rn(__fmul_rn(sc[4], bx), __fmul_rn(sc[5], by));
+          s_guess[0] = __fadd_rn(px, dx);
+          s_guess[1] = __fadd_rn(py, dy);
+          s_conv = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) < t.eps2;
+        }
+        __syncthreads();
+        px = s_guess[0];
+        py = s_guess[1];
+        conv = s_conv;
+      }
+      if (tid == 0) {
+        const bool in_img = px >= 0.f && px <= (float)(lv.W - 1) && py >= 0.f &&
+                            py <= (float)(lv.H - 1);
+        const bool ok_l = sc[6] != 0.f && in_img && isfinite(px) && isfinite(py);
+        if (ok_l) {
+          gx = px;
+          gy = py;
+        }
+        // OpenCV semantics: the status comes from the finest level.
+        if (l == 0) ok = ok_l;
+      }
+    }
+    if (tid == 0) {
+      if (l > 0) {
+        gx = __fmul_rn(gx, 2.f);
+        gy = __fmul_rn(gy, 2.f);
+      }
+      s_guess[0] = gx;
+      s_guess[1] = gy;
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kUnbounded>
 __global__ void __launch_bounds__(kThreads, 2) lk_track_kernel(const Track t, const Layout L) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
@@ -587,6 +748,15 @@ __global__ void __launch_bounds__(kThreads, 2) lk_track_kernel(const Track t, co
     gx = s_guess[0];
     gy = s_guess[1];
   }
+  if constexpr (kUnbounded) {
+    walk_unbounded(t, L, lp, sm, s_guess, k, gx, gy, ok);
+    if (tid == 0) {
+      t.out_pts[2 * k] = gx;
+      t.out_pts[2 * k + 1] = gy;
+      t.status[k] = ok;
+    }
+    return;
+  }
   float* swin = sm + L.swin;
   float* corr = sm + L.corr;
   for (int l = t.levels - 1; l >= 0; --l) {
@@ -648,20 +818,24 @@ __global__ void __launch_bounds__(kThreads, 2) lk_track_kernel(const Track t, co
 
 // One direction of pyramidal LK for t->K points, every level in one launch
 // on `stream`. Returns a cudaError_t (0 on success).
+// slack <= 0 runs the unbounded walk.
 extern "C" int opt_lk_track(const LkTrack* in, void* stream) {
-  const LkTrack t = *in;
+  LkTrack t = *in;
   if (t.K == 0) return 0;
-  if (t.levels < 1 || t.levels > kMaxLevels || t.slack < 1 || 2 * t.slack + 3 > kMaxA)
+  const bool unbounded = t.slack <= 0;
+  if (unbounded) t.slack = 0;
+  if (t.levels < 1 || t.levels > kMaxLevels || 2 * t.slack + 3 > kMaxA)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < t.levels; ++l)
     if (t.lv[l].win && (t.lv[l].win < 3 || t.lv[l].win % 2 == 0)) return (int)cudaErrorInvalidValue;
   const Layout L = layout(t);
   const size_t smem = sizeof(float) * L.total;
+  const auto kernel = unbounded ? lk_track_kernel<true> : lk_track_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lk_track_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lk_track_kernel<<<t.K, kThreads, smem, (cudaStream_t)stream>>>(t, L);
+  kernel<<<t.K, kThreads, smem, (cudaStream_t)stream>>>(t, L);
   return (int)cudaGetLastError();
 }

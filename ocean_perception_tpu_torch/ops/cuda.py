@@ -24,6 +24,9 @@ fit; its plain version is the fits' loop over the two
 (``imaging/backscatter.py::backscatter_lm_plain``,
 ``imaging/attenuation.py::beta_lm_plain``).
 
+``lk_coarse_match`` (``csrc/lk_coarse.cu``) is the LK tracker's coarse
+block match (``LKParams.coarse_init``), which the JAX package runs in XLA.
+
 ``pm_match_strip`` launches the same kernel as ``pm_match``, reading the
 volume in the two strip layouts; each has its own entry in
 :data:`LAUNCHES`, so a run shows which layout the match went through.
@@ -56,8 +59,8 @@ from .windows import fold_rings
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu", "lm_solve.cu",
-           "sea_thru_fit.cu")
+SOURCES = ("cost_volume.cu", "volume_build.cu", "patchmatch.cu", "lk.cu", "lk_coarse.cu",
+           "lm_solve.cu", "sea_thru_fit.cu")
 HEADERS = ("cost_terms.cuh", "lm_solve.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -67,8 +70,8 @@ NVCC_FLAGS = (
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else.
 LAUNCHES = {"cost_volume": 0, "pm_match": 0, "build_volumes": 0, "pm_match_strip": 0,
-            "pm_pass": 0, "lk_track": 0, "lm_solve_small": 0, "lm_row_sum": 0,
-            "sea_thru_fit": 0}
+            "pm_pass": 0, "lk_track": 0, "lk_coarse_match": 0, "lm_solve_small": 0,
+            "lm_row_sum": 0, "sea_thru_fit": 0}
 
 
 def reset_launches() -> None:
@@ -146,6 +149,7 @@ _SIGNATURES = {
     "opt_pm_pass": [_P] * 6 + [_I] * 13 + [_F, _F, _I, _P],
     "opt_lm_solve_small": [_P] * 4 + [_I] * 4 + [_P],
     "opt_lm_row_sum": [_P, _P, _I, _I, _P],
+    "opt_lk_coarse_match": [_P, _P] + [_I] * 4 + [_P, _P, _I, _P] + [_I] * 3 + [_P],
 }
 for _name in ("opt_lm_solve_small", "opt_lm_row_sum"):
     _SIGNATURES[_name + "_f64"] = _SIGNATURES[_name]
@@ -399,7 +403,7 @@ def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int
     returns the points (K, 2) and the status (K,) bool; see
     tracking/lk.py::lk_track_plain. Level l is the (R, H, W) rings
     tmpl_levels[l] and srch_levels[l], walked with window wins[l] (0 skips
-    it). With K = 0 nothing is launched.
+    it). slack <= 0 walks unbounded. With K = 0 nothing is launched.
 
     A batch of cameras, points (*batch, K, 2) and rings (*batch, R, H, W),
     is one launch of n*K blocks, n = prod(batch): each camera's ring is
@@ -434,8 +438,8 @@ def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int
         pts, init = pts.reshape(-1, 2), init.reshape(-1, 2)
     if any(w != 0 and (w < 3 or w % 2 == 0) for w in wins):
         raise ValueError(f"windows must be odd and >= 3 (0 skips a level), got {list(wins)}")
-    if slack < 1 or 2 * slack + 3 > 32:
-        raise ValueError(f"need 1 <= slack <= 14, got {slack}")
+    if 2 * slack + 3 > 32:
+        raise ValueError(f"need slack <= 14 (<= 0: the unbounded walk), got {slack}")
     n = pts.shape[0]
     out = torch.empty((*batch, K, 2), dtype=torch.float32, device=pts.device)
     status = torch.empty((*batch, K), dtype=torch.bool, device=pts.device)
@@ -453,6 +457,47 @@ def lk_track(tmpl_levels, srch_levels, pts, init, src_t, src_s, wins, slack: int
     _check(err, "lk_track")
     LAUNCHES["lk_track"] += 1
     return out, status
+
+
+def lk_coarse_match(prev, nxt, pts, src, search: int, patch: int) -> torch.Tensor:
+    """The coarse block match of K points, one launch (csrc/lk_coarse.cu):
+    returns pt + the best whole offset, (K, 2); see
+    tracking/lk.py::coarse_block_match_plain. prev is the (R, H, W) ring of
+    template frames (src (K,) each point's), nxt the (H, W) search frame.
+    A batch of cameras, points (*batch, K, 2), src (*batch, K), prev
+    (*batch, R, H, W) and nxt (*batch, H, W), is one launch of n*K blocks,
+    the rings folded as lk_track folds them. With K = 0 nothing is
+    launched."""
+    batch = tuple(pts.shape[:-2])
+    nb = len(batch)
+    _require(prev, "prev", (torch.float32,))
+    _require(nxt, "nxt", (torch.float32,))
+    if prev.ndim != nb + 3 or nxt.ndim != nb + 2 or prev.shape[-2:] != nxt.shape[-2:] \
+            or tuple(prev.shape[:nb]) != batch or tuple(nxt.shape[:nb]) != batch:
+        raise ValueError(f"need ({'*batch, ' if batch else ''}R, H, W) templates and an (H, W) "
+                         f"search image of one size, got {tuple(prev.shape)} and "
+                         f"{tuple(nxt.shape)} for points {tuple(pts.shape)}")
+    K = pts.shape[-2]
+    _require(pts, "pts", (torch.float32,), (*batch, K, 2))
+    _require(src, "src", (torch.int32,), (*batch, K))
+    if search < 0 or patch < 1:
+        raise ValueError(f"need search >= 0 and patch >= 1, got {search} and {patch}")
+    if batch:
+        (prev,), src = fold_rings([prev], src, batch, K)
+        pts = pts.reshape(-1, 2)
+    nxt = nxt.reshape(-1, *nxt.shape[-2:])  # a frame a camera; point k searches frame k // K
+    n = pts.shape[0]
+    out = torch.empty((*batch, K, 2), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    H, W = prev.shape[-2:]
+    with torch.cuda.device(pts.device):
+        err = library().opt_lk_coarse_match(
+            prev.data_ptr(), nxt.data_ptr(), prev.shape[0], nxt.shape[0], H, W, pts.data_ptr(),
+            src.data_ptr(), K, out.data_ptr(), n, search, patch, _stream(pts))
+    _check(err, "lk_coarse_match")
+    LAUNCHES["lk_coarse_match"] += 1
+    return out
 
 
 LM_MAX_P = 16

@@ -5,7 +5,7 @@ Reference: ft/FeatureTracker (feature_tracker.cpp:19-95) around
 cv::calcOpticalFlowPyrLK: window 21, 4 levels, at most 30 iterations,
 eps 0.01, and a forward/backward consistency check.
 
-The port has one LK path, the one the TPU's fused kernel pair computes
+The default LK path is the one the TPU's fused kernel pair computes
 (``ops/pallas/lk_prep.py`` + ``ops/pallas/lk_iterate.py``). Per pyramid level
 and direction, for all K points:
 
@@ -27,6 +27,16 @@ a block a point; on a CPU tensor it is :func:`lk_track_plain`, made of the
 plain twins :func:`lk_prep_plain` and :func:`lk_walk_plain`, which spell
 every reduction out as a loop of elementwise ops in the kernel's order, so
 that kernel and twins agree bit for bit.
+
+Two options of the reference, which it runs in XLA:
+
+- ``search_slack <= 0``, the unbounded walk: a level is the template side
+  and a walk that reads a (win+2)^2 window at the position on every step
+  (:func:`lk_walk_unbounded_plain`); on the card a mode of the same
+  ``lk_track`` launch.
+- ``coarse_init``: an exhaustive SSD block match at the coarsest level seeds
+  the forward walk (:func:`coarse_block_match`), one ``lk_coarse_match``
+  launch (``csrc/lk_coarse.cu``) on the card.
 
 Levels are never padded: the reference edge-pads each level by
 ``pad = window//2 + 2``; here coordinates are those of the padded level and
@@ -57,9 +67,16 @@ class LKParams:
     min_eig_threshold: float = 1.5e-9
     bidirectional: bool = True
     fwd_bwd_tol: float = 2.0
-    # The coarse block-match initialisation is not ported: True raises.
+    # Large-displacement start: an exhaustive SSD block match of a
+    # coarse_patch^2 template over (2*coarse_search + 1)^2 whole offsets at
+    # the coarsest level seeds the forward walk.
     coarse_init: bool = False
-    # Half-width of the search slack around each level's guess (> 0).
+    coarse_search: int = 12
+    coarse_patch: int = 9
+    # Half-width of the search slack around each level's guess. <= 0 walks
+    # unbounded: every step re-reads a (window+2)^2 window at the position,
+    # so only max_iters limits the motion, and no point is stopped at an
+    # edge of its window.
     search_slack: int = 4
     # Backward pass over only the N finest levels, from an offset start
     # (0 = all levels from a zero-motion guess, the reference's semantics).
@@ -109,12 +126,14 @@ def _tents(pos: torch.Tensor, n: int) -> torch.Tensor:
     return (1.0 - (pos[..., None] - a).abs()).clamp_min(0.0)
 
 
-def _recentre(twin: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
-    """(K, P, P) template, P = ST - 1, recentred on its subpixel position
-    (fy, fx) inside the (K, ST, ST) window: tents over the rows (the y
+def _recentre(twin: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
+              P: Optional[int] = None) -> torch.Tensor:
+    """(K, P, P) patch of the (K, n, n) window centred on its subpixel
+    position (fy, fx), P = n - 1 unless given: row p's tent centre is
+    clip((fy + p) - P//2, 0, n - 1). Tents over the rows (the y
     contraction), then over the columns, each a sum over the whole axis."""
     ST = twin.shape[-1]
-    P = ST - 1
+    P = ST - 1 if P is None else P
     i = torch.arange(P, dtype=torch.float32, device=twin.device)
     wy = _tents(((fy[:, None] + i) - (P // 2)).clamp(0, ST - 1), ST)  # (K, P, ST)
     wx = _tents(((fx[:, None] + i) - (P // 2)).clamp(0, ST - 1), ST)
@@ -127,37 +146,38 @@ def _recentre(twin: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.T
     return t2
 
 
-def lk_prep_plain(tmpl: torch.Tensor, srch: torch.Tensor, pts: torch.Tensor,
-                  guess: torch.Tensor, src_t: torch.Tensor, src_s: torch.Tensor, *,
-                  win: int, slack: int, pad: int, min_eig_threshold: float):
-    """Plain twin of the prep: one level, all K points.
+def _finite_or_zero(v: torch.Tensor) -> torch.Tensor:
+    return torch.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
 
-    tmpl (Rt, H, W) and srch (Rs, H, W) are unpadded levels (rings allowed);
-    pts and guess are (K, 2) [x, y] at the level's scale; src_t and src_s
-    (K,) pick each point's frame. Returns corr (K, 2, A, A) [gx, gy surfaces,
-    y offset, x offset], scal (K, 8) [tgx, tgy, inv00, inv01, inv10, inv11,
-    sy0, sx0] and the template gate okg (K,) bool.
-    """
+
+class TemplateSide(NamedTuple):
+    """One level's template side for K points (what K5 computes before the
+    search window): the recentred patch and its central-difference
+    gradients (K, win, win), the inverse normal matrix (K, 4) [inv00, inv01,
+    inv10, inv11] and the min-eigenvalue gate (K,) bool."""
+    tpatch: torch.Tensor
+    gx: torch.Tensor
+    gy: torch.Tensor
+    inv: torch.Tensor
+    okg: torch.Tensor
+
+
+def template_side_plain(tmpl: torch.Tensor, pts: torch.Tensor, src_t: torch.Tensor, *,
+                        win: int, pad: int, min_eig_threshold: float) -> TemplateSide:
+    """Plain twin of the template side of one level: tmpl (Rt, H, W), pts
+    (K, 2) [x, y] at the level's scale, src_t (K,) each point's frame."""
     H, W = tmpl.shape[-2], tmpl.shape[-1]
     r = win // 2
     ST = win + 3
-    ws = win + 2 * (slack + 1)
-    A = ws - win + 1
     P = win + 2
-    Hp, Wp = H + 2 * pad, W + 2 * pad
     # Non-finite points get origin 0; the caller's finite check fails them.
-    ptx, pty, gsx, gsy = (torch.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
-                          for v in (pts[:, 0], pts[:, 1], guess[:, 0], guess[:, 1]))
-    t0y = _origin(pty, r + 1 - pad, Hp - ST)
-    t0x = _origin(ptx, r + 1 - pad, Wp - ST)
+    ptx, pty = _finite_or_zero(pts[:, 0]), _finite_or_zero(pts[:, 1])
+    t0y = _origin(pty, r + 1 - pad, H + 2 * pad - ST)
+    t0x = _origin(ptx, r + 1 - pad, W + 2 * pad - ST)
     fy = (pty + pad) - t0y.float()
     fx = (ptx + pad) - t0x.float()
-    sy0 = _origin(gsy, r + slack + 1 - pad, Hp - ws)
-    sx0 = _origin(gsx, r + slack + 1 - pad, Wp - ws)
     st = src_t.long().clamp(0, tmpl.shape[0] - 1)
-    ss = src_s.long().clamp(0, srch.shape[0] - 1)
     twin = extract_windows(tmpl, t0y, t0x, ST, src=st, pad=pad)   # (K, ST, ST)
-    swin = extract_windows(srch, sy0, sx0, ws, src=ss, pad=pad)   # (K, ws, ws)
 
     t2 = _recentre(twin, fy, fx)
     tpatch = t2[:, 1:P - 1, 1:P - 1]
@@ -177,19 +197,46 @@ def lk_prep_plain(tmpl: torch.Tensor, srch: torch.Tensor, pts: torch.Tensor,
     okg = (det > _DET_MIN) & (min_eig > _f32(min_eig_threshold))
     dsafe = torch.where(det > _DET_MIN, det, 1.0)
     inv01 = -gxy / dsafe
+    inv = torch.stack([gyy / dsafe, inv01, inv01, gxx / dsafe], dim=1)
+    return TemplateSide(tpatch, gx, gy, inv, okg)
+
+
+def lk_prep_plain(tmpl: torch.Tensor, srch: torch.Tensor, pts: torch.Tensor,
+                  guess: torch.Tensor, src_t: torch.Tensor, src_s: torch.Tensor, *,
+                  win: int, slack: int, pad: int, min_eig_threshold: float):
+    """Plain twin of the prep: one level, all K points.
+
+    tmpl (Rt, H, W) and srch (Rs, H, W) are unpadded levels (rings allowed);
+    pts and guess are (K, 2) [x, y] at the level's scale; src_t and src_s
+    (K,) pick each point's frame. Returns corr (K, 2, A, A) [gx, gy surfaces,
+    y offset, x offset], scal (K, 8) [tgx, tgy, inv00, inv01, inv10, inv11,
+    sy0, sx0] and the template gate okg (K,) bool.
+    """
+    H, W = tmpl.shape[-2], tmpl.shape[-1]
+    r = win // 2
+    ws = win + 2 * (slack + 1)
+    A = ws - win + 1
+    ts = template_side_plain(tmpl, pts, src_t, win=win, pad=pad,
+                             min_eig_threshold=min_eig_threshold)
+    gsx, gsy = _finite_or_zero(guess[:, 0]), _finite_or_zero(guess[:, 1])
+    sy0 = _origin(gsy, r + slack + 1 - pad, H + 2 * pad - ws)
+    sx0 = _origin(gsx, r + slack + 1 - pad, W + 2 * pad - ws)
+    ss = src_s.long().clamp(0, srch.shape[0] - 1)
+    swin = extract_windows(srch, sy0, sx0, ws, src=ss, pad=pad)   # (K, ws, ws)
 
     # Correlation surfaces, one accumulator over (y, x) in row-major order.
-    g2 = torch.stack([gx, gy], dim=1)                                # (K, 2, win, win)
+    g2 = torch.stack([ts.gx, ts.gy], dim=1)                          # (K, 2, win, win)
     corr = torch.zeros((pts.shape[0], 2, A, A), dtype=torch.float32, device=pts.device)
     for y in range(win):
         for x in range(win):
             corr = corr + g2[:, :, y, x, None, None] * swin[:, None, y:y + A, x:x + A]
 
-    scal = torch.stack([
-        _sum_rows_first(tpatch * gx), _sum_rows_first(tpatch * gy),
-        gyy / dsafe, inv01, inv01, gxx / dsafe, sy0.float(), sx0.float(),
+    scal = torch.cat([
+        torch.stack([_sum_rows_first(ts.tpatch * ts.gx), _sum_rows_first(ts.tpatch * ts.gy)],
+                    dim=1),
+        ts.inv, torch.stack([sy0.float(), sx0.float()], dim=1),
     ], dim=1)
-    return corr, scal, okg
+    return corr, scal, ts.okg
 
 
 def _require_cpu(t: torch.Tensor, name: str) -> None:
@@ -270,6 +317,58 @@ def lk_walk(corr, scal, pos0, *, r: int, ws: int, pad: int, max_iters: int, eps:
                          eps=eps)
 
 
+def lk_walk_unbounded_plain(srch: torch.Tensor, src_s: torch.Tensor, ts: TemplateSide,
+                            pos0: torch.Tensor, *, pad: int, max_iters: int, eps: float,
+                            count_steps: bool = False):
+    """Plain twin of the unbounded walk (search_slack <= 0): ``max_iters``
+    masked Gauss-Newton steps, each on a window read afresh at the position.
+
+    Each step reads the (win+2)^2 window of frame src_s (K,) of srch
+    (Rs, H, W) whose origin is clip(floor(pos) + pad - r - 1, 0, H + 2*pad
+    - ws) in padded coordinates, resamples the win x win patch at the
+    position with tents (the template's recentring, rows then columns),
+    sums diff*gx and diff*gy row by row, solves the 2x2 step and marks the
+    point converged once |step| < eps; a converged point keeps its position.
+    A non-finite position reads the window at 0 and stays non-finite.
+    Returns pos (K, 2), and with ``count_steps`` also the (K,) int32 count of
+    steps each point moved and the (K, 2) int32 [rows, columns] of the box
+    that covers every window it read before it converged.
+    """
+    win = ts.tpatch.shape[-1]
+    r, ws = win // 2, win + 2
+    H, W = srch.shape[-2], srch.shape[-1]
+    ss = src_s.long().clamp(0, srch.shape[0] - 1)
+    i00, i01, i10, i11 = ts.inv.unbind(1)
+    px, py = pos0[:, 0], pos0[:, 1]
+    conv = torch.zeros_like(px, dtype=torch.bool)
+    steps = torch.zeros_like(px, dtype=torch.int32)
+    lo = torch.full((px.shape[0], 2), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                    device=px.device)
+    hi = torch.full_like(lo, -1)
+    eps2 = _f32(eps * eps)
+    for _ in range(max_iters):
+        cpx, cpy = _finite_or_zero(px), _finite_or_zero(py)
+        y0 = _origin(cpy, r + 1 - pad, H + 2 * pad - ws)
+        x0 = _origin(cpx, r + 1 - pad, W + 2 * pad - ws)
+        at = torch.stack([y0, x0], dim=1)
+        lo = torch.where(conv[:, None], lo, torch.minimum(lo, at))
+        hi = torch.where(conv[:, None], hi, torch.maximum(hi, at))
+        swin = extract_windows(srch, y0, x0, ws, src=ss, pad=pad)
+        patch = _recentre(swin, (cpy + pad) - y0.float(), (cpx + pad) - x0.float(), win)
+        diff = patch - ts.tpatch
+        bx = _sum_rows_first(diff * ts.gx)
+        by = _sum_rows_first(diff * ts.gy)
+        dx = -(i00 * bx + i01 * by)
+        dy = -(i10 * bx + i11 * by)
+        px = torch.where(conv, px, px + dx)
+        py = torch.where(conv, py, py + dy)
+        steps = steps + (~conv).int()
+        conv = conv | ((dx * dx + dy * dy) < eps2)
+    pos = torch.stack([px, py], dim=1)
+    box = torch.where(hi >= 0, hi - lo + ws, 0)
+    return (pos, steps, box) if count_steps else pos
+
+
 # --- coarse to fine ----------------------------------------------------------
 
 
@@ -277,7 +376,7 @@ def lk_track_plain(tmpl_levels: Sequence[torch.Tensor], srch_levels: Sequence[to
                    points: torch.Tensor, init: torch.Tensor, src_t: torch.Tensor,
                    src_s: torch.Tensor, *, wins: Sequence[Optional[int]], slack: int, pad: int,
                    min_eig_threshold: float, max_iters: int, eps: float,
-                   steps: Optional[list] = None):
+                   steps: Optional[list] = None, boxes: Optional[list] = None):
     """Plain twin of the ``lk_track`` kernel: one direction, every level.
 
     tmpl_levels and srch_levels hold one (R, H, W) ring a level, finest
@@ -286,14 +385,18 @@ def lk_track_plain(tmpl_levels: Sequence[torch.Tensor], srch_levels: Sequence[to
     coarse to fine: prep, walk, then the level update (the walk's position
     is kept where the template gate passed, the position lies inside the
     level and is finite, and the point never left its slack window; the
-    guess doubles below every level but the finest). Returns the points
-    (K, 2) and the status (K,) bool, level 0's gate. ``steps``, where given,
-    gets one (level, (K,) int32 steps moved) entry a level walked.
+    guess doubles below every level but the finest). With slack <= 0 a
+    level is the template side and the unbounded walk
+    (:func:`lk_walk_unbounded_plain`), which no point can leave. Returns
+    the points (K, 2) and the status (K,) bool, level 0's gate. ``steps``, where given,
+    gets one (level, (K,) int32 steps moved) entry a level walked; ``boxes``,
+    where given, one (level, (K, 2) int32 [rows, columns] of the box that
+    covers every window the walk read) entry a level of the unbounded walk.
 
     A batch of cameras, as the kernel takes it: points, init, src_t and
     src_s (*batch, K, ...) and (*batch, R, H, W) rings are folded into one
     ring of n*R frames and n*K points (ops/windows.py::fold_rings); the
-    outputs, and the steps, come back (*batch, K, ...).
+    outputs, the steps and the boxes come back (*batch, K, ...).
     """
     batch = tuple(points.shape[:-2])
     if batch:
@@ -301,12 +404,16 @@ def lk_track_plain(tmpl_levels: Sequence[torch.Tensor], srch_levels: Sequence[to
         tmpl_levels, src_t = fold_rings(tmpl_levels, src_t, batch, K)
         srch_levels, src_s = fold_rings(srch_levels, src_s, batch, K)
         flat_steps = None if steps is None else []
+        flat_boxes = None if boxes is None else []
         pts, ok = lk_track_plain(tmpl_levels, srch_levels, points.reshape(-1, 2),
                                  init.reshape(-1, 2), src_t, src_s, wins=wins, slack=slack,
                                  pad=pad, min_eig_threshold=min_eig_threshold,
-                                 max_iters=max_iters, eps=eps, steps=flat_steps)
+                                 max_iters=max_iters, eps=eps, steps=flat_steps,
+                                 boxes=flat_boxes)
         if steps is not None:
             steps.extend((lvl, moved.reshape(*batch, K)) for lvl, moved in flat_steps)
+        if boxes is not None:
+            boxes.extend((lvl, box.reshape(*batch, K, 2)) for lvl, box in flat_boxes)
         return pts.reshape(*batch, K, 2), ok.reshape(*batch, K)
     levels = len(tmpl_levels)
     points, guess = points.float(), init.float() / 2.0 ** (levels - 1)
@@ -315,12 +422,24 @@ def lk_track_plain(tmpl_levels: Sequence[torch.Tensor], srch_levels: Sequence[to
         win = wins[lvl]
         if win is not None:
             H, W = tmpl_levels[lvl].shape[-2], tmpl_levels[lvl].shape[-1]
-            corr, scal, ok_g = lk_prep_plain(
-                tmpl_levels[lvl], srch_levels[lvl], points / 2.0 ** lvl, guess, src_t, src_s,
-                win=win, slack=slack, pad=pad, min_eig_threshold=min_eig_threshold)
-            pos, hit, moved = lk_walk_plain(corr, scal, guess, r=win // 2,
-                                            ws=win + 2 * (slack + 1), pad=pad,
-                                            max_iters=max_iters, eps=eps, count_steps=True)
+            pts_l = points / 2.0 ** lvl
+            if slack > 0:
+                corr, scal, ok_g = lk_prep_plain(
+                    tmpl_levels[lvl], srch_levels[lvl], pts_l, guess, src_t, src_s, win=win,
+                    slack=slack, pad=pad, min_eig_threshold=min_eig_threshold)
+                pos, hit, moved = lk_walk_plain(corr, scal, guess, r=win // 2,
+                                                ws=win + 2 * (slack + 1), pad=pad,
+                                                max_iters=max_iters, eps=eps, count_steps=True)
+            else:
+                ts = template_side_plain(tmpl_levels[lvl], pts_l, src_t, win=win, pad=pad,
+                                         min_eig_threshold=min_eig_threshold)
+                ok_g = ts.okg
+                pos, moved, box = lk_walk_unbounded_plain(srch_levels[lvl], src_s, ts, guess,
+                                                          pad=pad, max_iters=max_iters,
+                                                          eps=eps, count_steps=True)
+                hit = torch.zeros_like(ok_g)
+                if boxes is not None:
+                    boxes.append((lvl, box))
             if steps is not None:
                 steps.append((lvl, moved))
             in_img = ((pos[:, 0] >= 0) & (pos[:, 0] <= W - 1)
@@ -353,6 +472,93 @@ def lk_track(tmpl_levels, srch_levels, points, init, src_t, src_s, *, wins, slac
                           max_iters=max_iters, eps=eps)
 
 
+# --- the coarse start --------------------------------------------------------
+
+
+# Points are clamped to +-2^20 px before rounding (the kernel's int range).
+_COARSE_MAX = float(2 ** 20)
+
+
+def _slice_start(v: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """A start as ``jax.lax.dynamic_slice`` takes it: a negative start
+    counts from the end (v + dim), then it is clamped to [0, dim - size]."""
+    return torch.where(v < 0, v + dim, v).clamp(0, dim - size)
+
+
+def coarse_block_match_plain(prev: torch.Tensor, nxt: torch.Tensor, points: torch.Tensor,
+                             src: Optional[torch.Tensor], *, search: int,
+                             patch: int) -> torch.Tensor:
+    """Plain twin of the ``lk_coarse_match`` kernel: the coarse start.
+
+    prev (R, H, W) is the coarsest level of the template frames (a ring;
+    src (K,) picks each point's frame, None frame 0) or (H, W) one frame,
+    nxt (H, W) the same level of the search frame, points (K, 2) [x, y] at
+    that level's scale. For each point the SSD of the patch^2 template at
+    round(pt) (half to even) against every whole offset of
+    (2*search + 1)^2, each summed row by row over the patch, left to right;
+    the first least cost in row-major (dy, dx) order wins (a NaN cost
+    counts as least, as ``jnp.argmin`` takes it). The template's and the
+    window's origins in the level edge-padded by search + patch//2 + 1 are
+    taken as ``jax.lax.dynamic_slice`` takes a start (:func:`_slice_start`),
+    and reads are clamped to the level, which is the edge padding; a
+    non-finite point is taken at 0. Returns pt + (dx, dy), (K, 2).
+
+    A batch of cameras, points and src (*batch, K, ...), prev
+    (*batch, [R,] H, W) and nxt (*batch, H, W), is folded into rings as
+    :func:`lk_track_plain` folds it.
+    """
+    batch = tuple(points.shape[:-2])
+    nb, K = len(batch), points.shape[-2]
+    (prev,), st = fold_rings([_as_ring(prev, nb)], src, batch, K)
+    (nxt,), sn = fold_rings([_as_ring(nxt, nb)], None, batch, K)
+    pts = points.reshape(-1, 2).float()
+    H, W = prev.shape[-2], prev.shape[-1]
+    n, r, wn = 2 * search + 1, patch // 2, patch + 2 * search
+    pad = search + r + 1
+    c = torch.round(_finite_or_zero(pts).clamp(-_COARSE_MAX, _COARSE_MAX)).long()
+    cx, cy = c[:, 0], c[:, 1]
+    Hp, Wp = H + 2 * pad, W + 2 * pad
+    templ = extract_windows(prev, _slice_start(cy + (pad - r), Hp, patch),
+                            _slice_start(cx + (pad - r), Wp, patch), patch, src=st, pad=pad)
+    window = extract_windows(nxt, _slice_start(cy + (pad - r - search), Hp, wn),
+                             _slice_start(cx + (pad - r - search), Wp, wn), wn, src=sn, pad=pad)
+    cost = torch.zeros((pts.shape[0], n, n), dtype=torch.float32, device=pts.device)
+    for i in range(patch):
+        for j in range(patch):
+            d = window[:, i:i + n, j:j + n] - templ[:, i, j, None, None]
+            cost = cost + d * d
+    best = torch.where(torch.isnan(cost), -1.0, cost).flatten(1).argmin(dim=1)
+    off = torch.stack([best % n - search, best // n - search], dim=1)
+    return (pts + off.float()).reshape(*batch, K, 2)
+
+
+def coarse_block_match(prev, nxt, points, src, *, search: int, patch: int) -> torch.Tensor:
+    """The coarse start (JAX's ``_coarse_block_match`` and
+    ``_coarse_block_match_ring``, which XLA runs): one ``lk_coarse_match``
+    launch (``csrc/lk_coarse.cu``) on a CUDA tensor,
+    :func:`coarse_block_match_plain` on a CPU one, a batch of cameras
+    included. Returns the (K, 2) matched positions at the level's scale."""
+    if points.is_cuda:
+        nb = points.ndim - 2
+        src = torch.zeros(points.shape[:-1], dtype=torch.int32, device=points.device) \
+            if src is None else src
+        return cuda.lk_coarse_match(_as_ring(prev, nb).contiguous(), nxt.contiguous(),
+                                    points.float().contiguous(), src.int().contiguous(),
+                                    search, patch)
+    return coarse_block_match_plain(prev, nxt, points, src, search=search, patch=patch)
+
+
+def _coarse_start(prev_pyr, next_pyr, points, p: LKParams,
+                  src: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """The forward walk's start at level 0's scale: the coarse block match
+    at the coarsest level where ``coarse_init`` is set, else None."""
+    if not p.coarse_init:
+        return None
+    scale = 2.0 ** (len(next_pyr) - 1)
+    return coarse_block_match(prev_pyr[-1], next_pyr[-1], points / scale, src,
+                              search=p.coarse_search, patch=p.coarse_patch) * scale
+
+
 def _as_ring(level: torch.Tensor, batch_dims: int) -> torch.Tensor:
     """A level (*batch, H, W) as a ring of one frame, (*batch, 1, H, W); a
     ring (*batch, R, H, W) as it is."""
@@ -368,8 +574,6 @@ def pyramidal_lk(prev_pyr: Sequence[torch.Tensor], next_pyr: Sequence[torch.Tens
     ring, levels shaped (R, H, W), with per-point frame indices. A batch of
     cameras: points (*batch, K, 2), levels (*batch, [R,] H, W), frame
     indices (*batch, K)."""
-    if p.search_slack <= 0:
-        raise NotImplementedError("search_slack <= 0 (the unbounded walk) is not ported")
     levels = len(prev_pyr)
     nb = points.ndim - 2
     zeros_k = torch.zeros(points.shape[:-1], dtype=torch.int32, device=points.device)
@@ -396,14 +600,18 @@ def _bwd_level_count(p: LKParams, levels: int) -> int:
 
 def _bwd_init(points: torch.Tensor, p: LKParams) -> torch.Tensor:
     """Start of the truncated backward walk: the round-trip target offset by
-    fwd_bwd_tol per axis (clamped to search_slack - 1), so a walk that never
-    moves lands at offset*sqrt(2) > tol and fails the check."""
-    off = min(float(p.fwd_bwd_tol), float(p.search_slack - 1))
-    if off * 1.4142 <= p.fwd_bwd_tol:
-        raise ValueError(
-            f"bwd_levels requires fwd_bwd_tol ({p.fwd_bwd_tol}) comfortably inside "
-            f"search_slack ({p.search_slack}): the clamped init offset {off} px no longer "
-            "satisfies offset*sqrt(2) > tol. Raise search_slack or lower fwd_bwd_tol.")
+    fwd_bwd_tol per axis, so a walk that never moves lands at
+    offset*sqrt(2) > tol and fails the check. With a slack window the offset
+    is clamped to search_slack - 1, inside the window; the unbounded walk
+    takes it whole."""
+    off = float(p.fwd_bwd_tol)
+    if p.search_slack > 0:
+        off = min(off, float(p.search_slack - 1))
+        if off * 1.4142 <= p.fwd_bwd_tol:
+            raise ValueError(
+                f"bwd_levels requires fwd_bwd_tol ({p.fwd_bwd_tol}) comfortably inside "
+                f"search_slack ({p.search_slack}): the clamped init offset {off} px no longer "
+                "satisfies offset*sqrt(2) > tol. Raise search_slack or lower fwd_bwd_tol.")
     return points + off
 
 
@@ -446,11 +654,6 @@ def _appearance_gate(prev_img: torch.Tensor, next_img: torch.Tensor, pts_prev: t
     return zncc >= p.bwd_zncc_min
 
 
-def _check_supported(p: LKParams) -> None:
-    if p.coarse_init:
-        raise NotImplementedError("coarse_init (the block-match initialisation) is not ported")
-
-
 def _round_trip(prev_pyr, next_pyr, points, valid, fwd: FlowResult, p: LKParams,
                 src: Optional[torch.Tensor]) -> torch.Tensor:
     """Forward status, then the backward check into the template frames."""
@@ -475,11 +678,11 @@ def track_points(prev_img: torch.Tensor, next_img: torch.Tensor, points: torch.T
     """Pyramids, forward LK and the optional backward check
     (FeatureTracker::Track, feature_tracker.cpp:49-95). A batch: (*batch,
     H, W) images and (*batch, K, 2) points."""
-    _check_supported(p)
     levels = p.max_level + 1
     prev_pyr = image_pyramid(prev_img, levels)
     next_pyr = image_pyramid(next_img, levels)
-    fwd = pyramidal_lk(prev_pyr, next_pyr, points, p)
+    fwd = pyramidal_lk(prev_pyr, next_pyr, points, p,
+                       initial_flow=_coarse_start(prev_pyr, next_pyr, points, p))
     return FlowResult(points=fwd.points,
                       status=_round_trip(prev_pyr, next_pyr, points, valid, fwd, p, None))
 
@@ -492,9 +695,9 @@ def track_points_ring(ring_pyr: Sequence[torch.Tensor], next_pyr: Sequence[torch
     the newest), and the backward check searches in that same slot. A
     batch: (*batch, R, H, W) ring levels, (*batch, H, W) next levels and
     (*batch, K) points and slots."""
-    _check_supported(p)
     src = src_idx.int().clamp(0, ring_pyr[0].shape[-3] - 1)
-    fwd = pyramidal_lk(ring_pyr, next_pyr, points, p, src_prev=src)
+    fwd = pyramidal_lk(ring_pyr, next_pyr, points, p, src_prev=src,
+                       initial_flow=_coarse_start(ring_pyr, next_pyr, points, p, src))
     return FlowResult(points=fwd.points,
                       status=_round_trip(ring_pyr, next_pyr, points, valid, fwd, p, src))
 

@@ -165,10 +165,6 @@ def test_track_points_ring_matches_jax(flow_pair, jax_path):
 def test_lk_options_raise_or_gate(flow_pair):
     prev, nxt, pts = flow_pair
     args = (_t(prev), _t(nxt), _t(pts), torch.ones(len(pts), dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        tlk.track_points(*args, tlk.LKParams(coarse_init=True))
-    with pytest.raises(NotImplementedError):
-        tlk.track_points(*args, tlk.LKParams(search_slack=0))
     with pytest.raises(ValueError, match="fwd_bwd_tol"):
         tlk.track_points(*args, tlk.LKParams(max_level=1, bwd_levels=1, search_slack=2))
     # The truncated backward pass with its ZNCC gate keeps the true tracks.
@@ -195,12 +191,13 @@ def _tent(pos, i):
     return (1.0 - (pos - i.float()).abs()).clamp_min(0.0)
 
 
-def _two_tap_recentre(twin, fy, fx):
-    """csrc/lk.cu's recentring: each entry of the y and x contractions is
+def _two_tap_recentre(twin, fy, fx, P=None):
+    """csrc/lk.cu's recentring (and the unbounded walk's resampling, P
+    given): each entry of the y and x contractions is
     w0*v(floor(c)) + w1*v(floor(c) + 1); where floor(c) + 1 is past the
     window, w1 is 0 and the second value is read at floor(c)."""
     K, ST = twin.shape[0], twin.shape[-1]
-    P = ST - 1
+    P = ST - 1 if P is None else P
     i = torch.arange(P, dtype=torch.float32)
     k = torch.arange(K)[:, None]
     cy = ((fy[:, None] + i) - (P // 2)).clamp(0, ST - 1)             # (K, P)
@@ -254,6 +251,37 @@ def test_two_tap_recentring_equals_the_full_sums(monkeypatch):
             got = tlk.lk_prep_plain(*args, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def test_unbounded_two_tap_equals_the_full_sums(monkeypatch):
+    """lk_track_plain's unbounded walk (slack 0) with csrc/lk.cu's two-tap
+    resampling gives the twin's points and status: the images and points of
+    the recentring test above, so that windows clamp at and past the
+    borders (where the taps meet a window's last row) and a position turns
+    NaN."""
+    rng = np.random.default_rng(21)
+    img = rng.normal(0.0, 1.0, (2, 40, 56)).astype(np.float32)
+    img[0, 10:20, 10:30] = 0.0
+    img[1, :, 40:] = -np.abs(img[1, :, 40:])
+    K = 40
+    pts = np.stack([rng.uniform(0, 55, K), rng.uniform(0, 39, K)], 1).astype(np.float32)
+    pts[:8] = np.round(pts[:8])
+    pts[8:12] = [[0, 0], [55, 39], [-7.5, 3.25], [70.2, 45.9]]
+    pts[12] = np.nan
+    pts[13:16] = [[15.0, 12.5], [20.25, 14.0], [12.0, 11.0]]
+    src = _t((np.arange(K) % 2).astype(np.int32))
+    args = ([_t(img)], [_t(np.ascontiguousarray(img[::-1]))], _t(pts),
+            _t(pts + np.float32(0.5)), src, src)
+    for win, max_iters in ((21, 30), (7, 3)):
+        kw = dict(wins=[win], slack=0, pad=PAD, min_eig_threshold=1.5e-9,
+                  max_iters=max_iters, eps=0.01)
+        want = tlk.lk_track_plain(*args, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(tlk, "_recentre", _two_tap_recentre)
+            got = tlk.lk_track_plain(*args, **kw)
+        assert torch.equal(got[0].nan_to_num(-1e30), want[0].nan_to_num(-1e30))
+        assert torch.equal(got[1], want[1])
+        assert 0 < int(want[1].sum()) < K
 
 
 def test_two_tap_lookup_equals_the_full_sums(monkeypatch):

@@ -382,11 +382,11 @@ def _lk_points(device, rng, K):
     return torch.from_numpy(pts).to(device)
 
 
-def _check_lk_track(rings, curs, pts, src, wins):
+def _check_lk_track(rings, curs, pts, src, wins, slack=4):
     """lk_track against lk_track_plain forward (templates from the ring)
     and backward (searching the ring), one launch a direction."""
     K = pts.shape[0]
-    kw = dict(wins=wins, slack=4, pad=12, min_eig_threshold=1.5e-9, max_iters=30, eps=0.01)
+    kw = dict(wins=wins, slack=slack, pad=12, min_eig_threshold=1.5e-9, max_iters=30, eps=0.01)
     zero = torch.zeros_like(src)
     fwd_init = pts + 1.25
     for tmpl, srch, st, ss, points, init in ((rings, curs, src, zero, pts, fwd_init),
@@ -429,6 +429,71 @@ def test_lk_track_full_sums_on_huge_values(cuda_device):
     pts[5:16] = torch.tensor([61.0, 41.5], device=cuda_device)  # on the 3e38 block
     src = torch.zeros(K, dtype=torch.int32, device=cuda_device)
     _check_lk_track(rings, curs, pts, src, [21, 21, 15, 7])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slack", [0, -2])
+@pytest.mark.parametrize("K", [0, 1, 33, 200])
+def test_lk_track_unbounded_matches_plain(cuda_device, K, slack):
+    """lk_track's unbounded walk (slack <= 0) on 4 levels (windows 21 and
+    15, a skipped level) with NaN points, points outside the image and on
+    its borders, and a per-point template frame."""
+    rng = np.random.default_rng(54 + K)
+    rings, curs = _lk_levels(cuda_device, rng)
+    src = torch.from_numpy(rng.integers(0, 3, K).astype(np.int32)).to(cuda_device)
+    pts, ok = _check_lk_track(rings, curs, _lk_points(cuda_device, rng, K), src,
+                              [21, 15, 21, None], slack)
+    if K >= 200:
+        assert ok.float().mean() > 0.3
+
+
+@pytest.mark.gpu
+def test_lk_track_unbounded_full_sums_on_huge_values(cuda_device):
+    """The unbounded walk's windows with values too large (or not finite)
+    for the two-tap sums take the full sums, as the slack mode's do."""
+    rng = np.random.default_rng(56)
+    rings, curs = _lk_levels(cuda_device, rng, huge=True)
+    K = 64
+    pts = _lk_points(cuda_device, rng, K)
+    pts[5:16] = torch.tensor([101.0, 49.5], device=cuda_device)  # walks onto the -inf run
+    src = torch.zeros(K, dtype=torch.int32, device=cuda_device)
+    _check_lk_track(rings, curs, pts, src, [21, 21, 15, 7], 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("search,patch", [(12, 9), (4, 5)])
+@pytest.mark.parametrize("K", [0, 1, 200])
+def test_lk_coarse_match_matches_plain(cuda_device, K, search, patch):
+    """lk_coarse_match against coarse_block_match_plain on a 3-frame ring at
+    a coarse level's size (points inside, on and past the borders, far
+    outside, NaN; a flat region whose offsets tie), and on 2 cameras in one
+    launch."""
+    rng = np.random.default_rng(60 + K)
+    ring = rng.random((2, 3, 45, 80)).astype(np.float32)
+    ring[:, :, 5:20, 5:30] = 0.5
+    nxt = np.ascontiguousarray(np.roll(ring[:, 1], (2, -3), (1, 2)))
+    pts = np.stack([rng.uniform(-20, 100, (2, K)), rng.uniform(-20, 65, (2, K))], -1)
+    pts = pts.astype(np.float32)
+    special = np.float32([[np.nan, 3], [0, 0], [79, 44], [-2.6, 5], [7, -3.5], [15, 12],
+                          [2.5, 0.5]])
+    n = min(K, len(special))
+    pts[:, :n] = special[:n]
+    src = rng.integers(0, 3, (2, K)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    kw = dict(search=search, patch=patch)
+    for b in range(2):
+        cuda.reset_launches()
+        got = tlk.coarse_block_match(t(ring[b]), t(nxt[b]), t(pts[b]), t(src[b]), **kw)
+        assert cuda.LAUNCHES["lk_coarse_match"] == (1 if K else 0)
+        want = tlk.coarse_block_match_plain(t(ring[b]), t(nxt[b]), t(pts[b]), t(src[b]), **kw)
+        assert torch.equal(got.nan_to_num(-1e30), want.nan_to_num(-1e30))
+    cuda.reset_launches()
+    got = tlk.coarse_block_match(t(ring), t(nxt), t(pts), t(src), **kw)
+    assert cuda.LAUNCHES["lk_coarse_match"] == (1 if K else 0)
+    want = tlk.coarse_block_match_plain(t(ring), t(nxt), t(pts), t(src), **kw)
+    assert got.shape == (2, K, 2)
+    assert torch.equal(got.nan_to_num(-1e30), want.nan_to_num(-1e30))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
