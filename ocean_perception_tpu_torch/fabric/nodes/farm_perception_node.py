@@ -29,6 +29,7 @@ Run: ``python -m ocean_perception_tpu_torch.fabric.nodes.farm_perception_node
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import threading
 import time
@@ -39,6 +40,7 @@ import torch
 
 from ...core.cameras import PinholeCamera, StereoCamera
 from ...ops.cuda import entry_device
+from ...utils.profiling import StageClock
 from ..messages import ImageMessage, MeshMessage, StereoImageMessage
 from ..pubsub import PubSub, UdpMulticastBus
 
@@ -78,6 +80,7 @@ class FarmPerceptionNode:
         vertex_min_obs: int = 3,
         mesher_scale: int = 1,
         device: torch.device | str = "cuda",
+        time_stages: bool = False,
     ):
         from ...mesher.object_mesher import ObjectMesherDeviceParams
         from ...models.perception import PerceptionConfig
@@ -121,6 +124,10 @@ class FarmPerceptionNode:
         self.rejected_frames = 0
         self.step_failures = 0
         self.busy_seconds = 0.0  # in fleet steps done, to their last publish
+        # With time_stages, each step runs under a StageClock: device ms a
+        # stage (annotate's spans), summed over the fleet steps done.
+        self.time_stages = time_stages
+        self.stage_ms: Dict[str, float] = {}
 
         for i in range(n_cameras):
             bus.subscribe(channel_input.format(i=i), self._make_handler(i))
@@ -171,7 +178,7 @@ class FarmPerceptionNode:
                 batch = self._collect_locked()
             t0 = time.perf_counter()
             try:
-                self._step(*batch)
+                stages = self._step(*batch)
                 failed = False
             except Exception as e:  # a poisoned frame must not kill the fleet
                 failed = True
@@ -184,7 +191,15 @@ class FarmPerceptionNode:
                 else:
                     self.busy_seconds += time.perf_counter() - t0
                     self.fleet_steps += 1
+                    for name, ms in stages.items():
+                        self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
                 self._wake.notify_all()
+
+    def stage_totals(self) -> Dict[str, float]:
+        """Device ms a stage, summed over the fleet steps done (empty
+        without ``time_stages``)."""
+        with self._lock:
+            return dict(self.stage_ms)
 
     def wait_steps(self, n: int, timeout: Optional[float] = None) -> bool:
         """Block until n fleet steps are done (True) or one has failed or the
@@ -242,7 +257,9 @@ class FarmPerceptionNode:
             pg = pyr_down(pg)
         return pg
 
-    def _step(self, lefts, rights, stamps, fresh_mask) -> None:
+    def _step(self, lefts, rights, stamps, fresh_mask) -> Dict[str, float]:
+        """One fleet step and its meshes; returns device ms a stage
+        (empty without ``time_stages``)."""
         from ...mesher.object_mesher import MesherDeviceOutput, build_meshes
         from ...parallel.sharded_pipeline import multi_camera_frontend_step
 
@@ -250,10 +267,12 @@ class FarmPerceptionNode:
         br = torch.from_numpy(rights).to(self.device)
         if self._prev_grays is None:
             self._prev_grays = self._first_grays(bl)
-        out, cur_grays = multi_camera_frontend_step(
-            self._states, self._graphs, self._prev_grays, bl, br, self.rig, self.config,
-            self.mesher_params, mesher_scale=self.mesher_scale, device=self.device,
-        )
+        clock = StageClock(self.device) if self.time_stages else contextlib.nullcontext()
+        with clock:
+            out, cur_grays = multi_camera_frontend_step(
+                self._states, self._graphs, self._prev_grays, bl, br, self.rig, self.config,
+                self.mesher_params, mesher_scale=self.mesher_scale, device=self.device,
+            )
         self._states = out.tracker_state
         self._graphs = out.graph
         self._prev_grays = cur_grays
@@ -263,6 +282,10 @@ class FarmPerceptionNode:
         enhanced = (out.perception.enhanced_left.cpu().numpy()
                     if self.channel_output_enhanced else None)
         del out
+        stages: Dict[str, float] = {}
+        if self.time_stages:  # the copies above waited for the step's work
+            for name, start, end in clock.read():
+                stages[name] = stages.get(name, 0.0) + end - start
         for i in range(self.n_cameras):
             if not fresh_mask[i]:
                 continue  # stale fill: its outputs were published last time
@@ -279,6 +302,7 @@ class FarmPerceptionNode:
                     self.channel_output_enhanced.format(i=i),
                     ImageMessage.from_array_jpg(stamps[i], enhanced[i]),
                 )
+        return stages
 
     def close(self) -> None:
         """Stop the fleet thread and wait for it (its step included)."""
@@ -291,7 +315,8 @@ class FarmPerceptionNode:
 
 
 def from_config(bus: PubSub, node_config_path: str, shared_config_path: str,
-                device: torch.device | str = "cuda") -> FarmPerceptionNode:
+                device: torch.device | str = "cuda",
+                time_stages: bool = False) -> FarmPerceptionNode:
     from ...config.bindings import load_mesher_params, load_rig
     from ...config.yaml_parser import YamlParser
     from ...models.perception import PerceptionConfig
@@ -317,6 +342,7 @@ def from_config(bus: PubSub, node_config_path: str, shared_config_path: str,
         vertex_min_obs=int(mp.vertex_min_obs),
         mesher_scale=int(parser.get("mesher_scale", 1)),
         device=device,
+        time_stages=time_stages,
     )
 
 
@@ -338,7 +364,8 @@ def main(argv=None) -> int:
                     help="tracking/mesher at 1/s resolution (reference "
                          "mesher_input_height parity; 2 = 360p from 720p)")
     ap.add_argument("--stats-every", type=float, default=0.0,
-                    help="print fleet step/frame counters every N seconds")
+                    help="print fleet step/frame counters and each stage's mean device ms "
+                         "a step every N seconds")
     ap.add_argument("--enhanced-out", default=None,
                     help="per-camera enhanced jpg channel template, e.g. farm/enhanced/cam{i}")
     ap.add_argument("--lcm", action="store_true")
@@ -350,7 +377,8 @@ def main(argv=None) -> int:
         from ..lcm_wire import LcmUdpBus as bus_cls
     bus = bus_cls(port=args.port) if args.port else bus_cls()
     if args.config and args.shared:
-        node = from_config(bus, args.config, args.shared, device=args.device)
+        node = from_config(bus, args.config, args.shared, device=args.device,
+                           time_stages=args.stats_every > 0)
     else:
         from ...models.perception import PerceptionConfig
 
@@ -367,26 +395,31 @@ def main(argv=None) -> int:
             channel_output_enhanced=args.enhanced_out,
             mesher_scale=args.mesher_scale,
             device=args.device,
+            time_stages=args.stats_every > 0,
         )
     print(f"farm_perception_node listening ({node.n_cameras} cameras on {node.device})...",
           flush=True)
     try:
         if args.stats_every > 0:
-            last = (0, time.monotonic(), 0.0)
+            last = (0, time.monotonic(), 0.0, {})
             while True:
                 time.sleep(args.stats_every)
                 now = time.monotonic()
-                steps, busy = node.fleet_steps, node.busy_seconds
+                steps, busy, stages = node.fleet_steps, node.busy_seconds, node.stage_totals()
                 span = max(now - last[1], 1e-9)
                 rate = (steps - last[0]) / span
+                done = steps - last[0]
+                per_step = "".join(f" {k}={(v - last[3].get(k, 0.0)) / done:.3f}"
+                                   for k, v in stages.items()) if done else ""
                 print(
                     f"fleet_steps={steps} ({rate:.2f}/s = "
                     f"{rate * node.n_cameras:.1f} cam-fps, busy {(busy - last[2]) / span:.0%})"
                     f" frames_in={node.frames_in} stale={node.stale_fills}"
-                    f" rejected={node.rejected_frames} failed={node.step_failures}",
+                    f" rejected={node.rejected_frames} failed={node.step_failures}"
+                    + (f" stage_ms{per_step}" if per_step else ""),
                     flush=True,
                 )
-                last = (steps, now, busy)
+                last = (steps, now, busy, stages)
         else:
             threading.Event().wait()
     except KeyboardInterrupt:

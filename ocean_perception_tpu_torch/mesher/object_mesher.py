@@ -30,6 +30,7 @@ from ..ops.cuda import entry_device
 from ..ops.interp import bilinear_sample, gather_pixels
 from ..tracking.stereo_tracker import (StereoTrackerParams, StereoTrackerState, device_scalar,
                                       track_and_triangulate)
+from ..utils.profiling import annotate
 from .foreground import estimate_foreground_mask
 from .landmark_graph import LandmarkGraph, cluster_sizes, get_cluster_labels, update_graph
 from .triangle_mesh import TriangleMesh
@@ -82,44 +83,46 @@ def mesher_device_step(tracker_state: StereoTrackerState, graph: LandmarkGraph,
     dev = cur_left.device
     new_state, out = track_and_triangulate(tracker_state, prev_left, cur_left, cur_right,
                                            fx_baseline, params.tracker)
-    obs = out.observations
-    fg = estimate_foreground_mask(cur_left, params.foreground_ksize,
-                                  params.foreground_min_gradient)
-    fxb = device_scalar(fx_baseline, torch.float32, dev)
+    with annotate("landmark_graph"):
+        obs = out.observations
+        fg = estimate_foreground_mask(cur_left, params.foreground_ksize,
+                                      params.foreground_min_gradient)
+        fxb = device_scalar(fx_baseline, torch.float32, dev)
 
-    # Pairwise gates.
-    alive = obs.valid & (obs.disparities > 0)
-    pts = obs.pixels
-    nb = pts.ndim - 2
-    diff = pts[..., :, None, :] - pts[..., None, :, :]
-    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-    near = d2 <= params.neighbor_radius_px ** 2
-    depth = fxb / obs.disparities.clamp_min(1e-3)
-    depth_ok = (depth[..., :, None] - depth[..., None, :]).abs() <= params.edge_max_depth_change
+        # Pairwise gates.
+        alive = obs.valid & (obs.disparities > 0)
+        pts = obs.pixels
+        nb = pts.ndim - 2
+        diff = pts[..., :, None, :] - pts[..., None, :, :]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        near = d2 <= params.neighbor_radius_px ** 2
+        depth = fxb / obs.disparities.clamp_min(1e-3)
+        depth_ok = (depth[..., :, None] - depth[..., None, :]).abs() <= params.edge_max_depth_change
 
-    # Foreground fraction along each segment: S samples per pair.
-    ts = segment_fractions(params.edge_samples, dev)[:, None]
-    seg = pts[..., :, None, None, :] * (1 - ts) + pts[..., None, :, None, :] * ts  # (K, K, S, 2)
-    f = params.fg_downsample
-    if f > 1:
-        Hf, Wf = fg.shape[-2] // f, fg.shape[-1] // f
-        fg_small = fg[..., : Hf * f, : Wf * f].float().reshape(*fg.shape[:-2], Hf, f, Wf, f)
-        fg_small = fg_small.mean(dim=(-3, -1))
-        fdiv = torch.full((), float(f), device=dev)
-        yy = (seg[..., 1] / fdiv).int().clamp(0, Hf - 1).long()
-        xx = (seg[..., 0] / fdiv).int().clamp(0, Wf - 1).long()
-        fg_frac = gather_pixels(fg_small, yy, xx, nb).mean(dim=-1)
-    else:
-        fg_frac = bilinear_sample(fg.float(), seg[..., 1], seg[..., 0], nb).mean(dim=-1)
-    fg_ok = fg_frac >= params.edge_min_foreground_percent
+        # Foreground fraction along each segment: S samples per pair.
+        ts = segment_fractions(params.edge_samples, dev)[:, None]
+        # (K, K, S, 2)
+        seg = pts[..., :, None, None, :] * (1 - ts) + pts[..., None, :, None, :] * ts
+        f = params.fg_downsample
+        if f > 1:
+            Hf, Wf = fg.shape[-2] // f, fg.shape[-1] // f
+            fg_small = fg[..., : Hf * f, : Wf * f].float().reshape(*fg.shape[:-2], Hf, f, Wf, f)
+            fg_small = fg_small.mean(dim=(-3, -1))
+            fdiv = torch.full((), float(f), device=dev)
+            yy = (seg[..., 1] / fdiv).int().clamp(0, Hf - 1).long()
+            xx = (seg[..., 0] / fdiv).int().clamp(0, Wf - 1).long()
+            fg_frac = gather_pixels(fg_small, yy, xx, nb).mean(dim=-1)
+        else:
+            fg_frac = bilinear_sample(fg.float(), seg[..., 1], seg[..., 0], nb).mean(dim=-1)
+        fg_ok = fg_frac >= params.edge_min_foreground_percent
 
-    pair_valid = near & alive[..., :, None] & alive[..., None, :]
-    max_weight = params.min_obs_connect_edge + params.min_obs_disconnect_edge
-    graph = update_graph(graph, obs.lmk_ids, depth_ok & fg_ok, pair_valid, max_weight)
-    labels = get_cluster_labels(graph, alive, params.min_obs_connect_edge)
-    return new_state, graph, MesherDeviceOutput(
-        labels=labels, sizes=cluster_sizes(labels), pixels=pts, disparities=obs.disparities,
-        alive=alive, foreground=fg, is_keyframe=out.is_keyframe)
+        pair_valid = near & alive[..., :, None] & alive[..., None, :]
+        max_weight = params.min_obs_connect_edge + params.min_obs_disconnect_edge
+        graph = update_graph(graph, obs.lmk_ids, depth_ok & fg_ok, pair_valid, max_weight)
+        labels = get_cluster_labels(graph, alive, params.min_obs_connect_edge)
+        return new_state, graph, MesherDeviceOutput(
+            labels=labels, sizes=cluster_sizes(labels), pixels=pts, disparities=obs.disparities,
+            alive=alive, foreground=fg, is_keyframe=out.is_keyframe)
 
 
 @dataclasses.dataclass

@@ -32,6 +32,7 @@ from ..ops.image import pyr_down, resize, to_grayscale
 from ..stereo.api import StereoEngine, estimate_disparity
 from ..stereo.patchmatch import PatchMatchParams
 from ..stereo.sgm import SgmParams
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,41 +79,44 @@ def perception_step(
         raise ValueError(f"need two ([B,] H, W, 3) images of one shape, got "
                          f"{tuple(left_rgb.shape)} and {tuple(right_rgb.shape)}")
     H, W = left_rgb.shape[-3], left_rgb.shape[-2]
-
-    gray_l = to_grayscale(left_rgb)
-    gray_r = to_grayscale(right_rgb)
-
     scale = config.internal_scale
     if scale < 1 or scale & (scale - 1):
         raise ValueError(f"internal_scale must be a power of two, got {scale}")
-    for _ in range(scale.bit_length() - 1):
-        gray_l = pyr_down(gray_l)
-        gray_r = pyr_down(gray_r)
 
-    d_small = config.max_disp // scale if scale > 1 else config.max_disp
-    if config.engine == "patchmatch":
-        pm = PatchMatchParams(max_disp=d_small, chunks=config.chunks, chunks_y=config.chunks_y,
-                              right_wta=True, volume_bf16=True,
-                              use_strip_volumes=config.use_strip_volumes)
-        result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.PATCHMATCH,
-                                    patchmatch_params=pm)
-    elif config.engine == "sgm":
-        result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.SGM,
-                                    sgm_params=SgmParams(max_disp=d_small))
-    else:
-        result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.WTA, max_disp=d_small)
+    with annotate("prep"):
+        gray_l = to_grayscale(left_rgb)
+        gray_r = to_grayscale(right_rgb)
+        for _ in range(scale.bit_length() - 1):
+            gray_l = pyr_down(gray_l)
+            gray_r = pyr_down(gray_r)
 
-    disp = result.left
-    if scale > 1:
-        disp = resize(disp, (H, W), method="nearest") * float(scale)
+    with annotate("stereo"):
+        d_small = config.max_disp // scale if scale > 1 else config.max_disp
+        if config.engine == "patchmatch":
+            pm = PatchMatchParams(max_disp=d_small, chunks=config.chunks,
+                                  chunks_y=config.chunks_y, right_wta=True, volume_bf16=True,
+                                  use_strip_volumes=config.use_strip_volumes)
+            result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.PATCHMATCH,
+                                        patchmatch_params=pm)
+        elif config.engine == "sgm":
+            result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.SGM,
+                                        sgm_params=SgmParams(max_disp=d_small))
+        else:
+            result = estimate_disparity(gray_l, gray_r, engine=StereoEngine.WTA,
+                                        max_disp=d_small)
 
-    depth = rig.disp_to_depth(disp)
-    depth = torch.where(torch.isfinite(depth) & (depth <= config.max_depth), depth, 0.0)
+        disp = result.left
+        if scale > 1:
+            disp = resize(disp, (H, W), method="nearest") * float(scale)
 
-    if config.run_enhance:
-        enhanced, _ = enhance_underwater(left_rgb, depth, config.enhance)
-    else:
-        enhanced = left_rgb
+        depth = rig.disp_to_depth(disp)
+        depth = torch.where(torch.isfinite(depth) & (depth <= config.max_depth), depth, 0.0)
+
+    with annotate("enhance"):
+        if config.run_enhance:
+            enhanced, _ = enhance_underwater(left_rgb, depth, config.enhance)
+        else:
+            enhanced = left_rgb
     return PerceptionOutput(disparity=disp, depth=depth, enhanced_left=enhanced)
 
 
@@ -172,14 +176,15 @@ def full_frontend_step(
                          f"{tuple(prev_left_gray.shape[:-2])}")
     tracker_state, graph = tracker_state.to(device), graph.to(device)
     out = perception_step(left_rgb, right_rgb, rig, config, device)
-    gray_l = to_grayscale(left_rgb)
-    gray_r = to_grayscale(right_rgb)
-    for _ in range(mesher_scale.bit_length() - 1):
-        gray_l = pyr_down(gray_l)
-        gray_r = pyr_down(gray_r)
-    # fx scales with the image; disparities are measured at 1/s resolution.
-    fxb = np.float32(rig.fx) * np.float32(rig.baseline) / np.float32(mesher_scale)
-    fxb = torch.full((), float(fxb), dtype=torch.float32, device=gray_l.device)
+    with annotate("lk"):
+        gray_l = to_grayscale(left_rgb)
+        gray_r = to_grayscale(right_rgb)
+        for _ in range(mesher_scale.bit_length() - 1):
+            gray_l = pyr_down(gray_l)
+            gray_r = pyr_down(gray_r)
+        # fx scales with the image; disparities are measured at 1/s resolution.
+        fxb = np.float32(rig.fx) * np.float32(rig.baseline) / np.float32(mesher_scale)
+        fxb = torch.full((), float(fxb), dtype=torch.float32, device=gray_l.device)
     new_state, new_graph, mesh_out = mesher_device_step(
         tracker_state, graph, prev_left_gray, gray_l, gray_r, fxb, mesher_params)
     return FullFrontendOutput(perception=out, mesher=mesh_out, tracker_state=new_state,

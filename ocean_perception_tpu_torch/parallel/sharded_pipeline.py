@@ -34,6 +34,7 @@ from ..ops.cuda import entry_device
 from ..ops.image import nearest_source, pyr_down, resize, to_grayscale
 from ..stereo.patchmatch import PatchMatchParams
 from ..tracking.stereo_tracker import StereoTrackerState
+from ..utils.profiling import annotate
 from .mesh import Mesh, join_rows, join_tree, split_rows, split_tree
 from .spatial import enhance_blocks
 from .stereo_sharded import patchmatch_blocks
@@ -144,10 +145,10 @@ def multi_camera_frontend_step(tracker_states: StereoTrackerState, graphs: Landm
     joined on the axis's first device."""
     if mesh is None:
         device = entry_device(device)
-        return full_frontend_step(tracker_states, graphs, prev_grays,
-                                  prepare_frames(batch_left, device),
-                                  prepare_frames(batch_right, device), rig, config, mesher_params,
-                                  mesher_scale=mesher_scale, device=device)
+        with annotate("prep"):
+            left, right = prepare_frames(batch_left, device), prepare_frames(batch_right, device)
+        return full_frontend_step(tracker_states, graphs, prev_grays, left, right, rig, config,
+                                  mesher_params, mesher_scale=mesher_scale, device=device)
     devices = _camera_devices(mesh, axis, len(batch_left))
     parts = zip(split_tree(tracker_states, devices), split_tree(graphs, devices),
                 split_rows(torch.as_tensor(prev_grays), devices),

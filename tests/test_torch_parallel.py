@@ -51,7 +51,6 @@ from ocean_perception_tpu_torch.parallel.sharded_pipeline import create_fleet_fr
 from ocean_perception_tpu_torch.stereo import patchmatch as tpm
 from ocean_perception_tpu_torch.stereo.cost import cost_volume
 from ocean_perception_tpu_torch.utils import profiling
-from ocean_perception_tpu_torch.utils.timing import StatsTracker
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -369,14 +368,18 @@ def test_dryrun_multichip_runs_on_cpu_devices(capsys):
 
 
 def test_profiling_names_regions_and_times_them(tmp_path):
-    stats = StatsTracker("t")
+    """annotate names a region in the trace; under a StageClock the region
+    is also a span of the clock, from the clock's first mark."""
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.timed(stats, "region") as outs:
+        with profiling.StageClock("cpu") as clock:
+            t0 = time.perf_counter()
             with profiling.annotate("sharded block 0"):
-                outs.append(torch.ones(4) * 2)
-    assert stats.stats("region").count() == 1
+                torch.ones(4) * 2
+            took_ms = (time.perf_counter() - t0) * 1e3
     assert any(e.key == "sharded block 0" for e in prof.key_averages())
     assert (tmp_path / "trace.json").stat().st_size > 0
+    (name, start, end), = clock.read()
+    assert name == "sharded block 0" and start == 0.0 and 0.0 < end <= took_ms
 
 
 @pytest.mark.gpu
